@@ -1,6 +1,6 @@
-"""Pod-scale program-size / compile-time check on a virtual CPU mesh.
+"""Large-mesh program-size / compile-time check on a virtual CPU mesh.
 
-VERDICT round 4 (weak #1): the sharded programs embed per-shard collective
+The sharded programs embed per-shard collective
 instances whose count can grow with mesh size P — the metropolis op's
 per-sweep dynamic-source `lax.switch` holds P ppermute branches x B
 sweeps, and the (round-5) span-bounded ring holds O(K) ppermutes — but

@@ -1,11 +1,11 @@
-"""cusmc_tpu — a TPU-native SMC/MCMC inference framework.
+"""cusmc_tpu — an accelerator-native SMC/MCMC inference framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capability surface of the
-CuSMC reference package (bootstrap particle filtering with Metropolis
+Brand-new JAX/XLA implementation of the capability surface of the CuSMC
+reference package (bootstrap particle filtering with Metropolis
 resampling over multivariate Normal / Student-T state-space models, plus
-direct distribution sampling and Metropolis-Hastings MCMC), redesigned for
-TPU: the whole filter is one compiled ``lax.scan``, particles and chains
-shard over a ``jax.sharding.Mesh``, and hot loops run as Pallas kernels.
+direct distribution sampling and Metropolis-Hastings MCMC): the whole
+filter is one compiled ``lax.scan`` on the GPU, and particles and chains
+shard over a ``jax.sharding.Mesh``.
 
 Public API (capability parity with the reference R surface, NAMESPACE:3-8):
 ``run``, ``MVN``, ``MVNPDF``, ``MVT``, ``MVTPDF``, ``metropolis_hastings``.

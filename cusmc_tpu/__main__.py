@@ -2,7 +2,7 @@
 
 The reference is driven from R scripts calling ``CuSMC::run`` and
 inspecting the CSVs it writes (``/root/reference/src/io.cpp:7-43``).
-This is the equivalent headless entry point for the TPU framework:
+This is the equivalent headless entry point:
 
     python -m cusmc_tpu demo
         Smoke-run the bootstrap filter on the bundled ``y_sim`` trace
@@ -12,7 +12,7 @@ This is the equivalent headless entry point for the TPU framework:
            [--output-dir out/] [--mesh P] [--track p]
         Run a declaratively configured filter (``config.FilterConfig``
         schema: num_particles, model {F,G,m0,C0,V,W[,df]}, distribution,
-        resampler, resampler_kwargs, ess_threshold, seed, engine, ...)
+        resampler, resampler_kwargs, ess_threshold, seed, layout, ...)
         on a [T, k] observation CSV. ``--output-dir`` writes the
         reference's CSV pair (weights + tracked-particle trajectory);
         ``--mesh P`` shards particles over the first P local devices.
@@ -159,7 +159,7 @@ def _cmd_run(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m cusmc_tpu",
-        description="TPU-native SMC runner (see cusmc_tpu/__main__.py)")
+        description="SMC runner (see cusmc_tpu/__main__.py)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     d = sub.add_parser("demo", help="smoke-run on the bundled y_sim")
@@ -192,6 +192,9 @@ def main(argv=None) -> int:
     r.set_defaults(fn=_cmd_run)
 
     args = parser.parse_args(argv)
+    from cusmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -94,7 +94,7 @@ def run(N: int, d: int, timeSteps: int, Y, m0, C0, F, G, V, W,
         key: KeyLike = None, output_dir: Optional[str] = None,
         ess_threshold: Optional[float] = None, dtype=jnp.float32,
         sqrt_method: str = "cholesky", return_diagnostics: bool = False,
-        engine: str = "auto", B: int = 10):
+        B: int = 10):
     """Full bootstrap particle-filter run; mirrors ``CuSMC::run``
     (``src/run.rcpp.cpp:58-126``, R wrapper ``R/RcppExports.R:66-84``).
 
@@ -127,7 +127,7 @@ def run(N: int, d: int, timeSteps: int, Y, m0, C0, F, G, V, W,
     result = bootstrap_filter(
         _as_key(key), model, jnp.asarray(ys, dtype), N,
         resampler=resampler, resampler_kwargs=resampler_kwargs,
-        ess_threshold=ess_threshold, return_history=True, engine=engine)
+        ess_threshold=ess_threshold, return_history=True)
 
     weights = jnp.exp(result.obs_loglik)  # raw densities, parity with w_t
     out = {

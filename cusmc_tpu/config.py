@@ -28,7 +28,6 @@ class FilterConfig:
     ess_threshold: Optional[float] = None
     seed: int = 0
     layout: str = "auto"
-    engine: str = "auto"
     return_history: bool = True
     sqrt_method: str = "cholesky"
     dtype: str = "float32"
@@ -77,4 +76,4 @@ def run_filter(config: FilterConfig, ys):
         resampler_kwargs=config.resampler_kwargs,
         ess_threshold=config.ess_threshold,
         return_history=config.return_history,
-        layout=config.layout, engine=config.engine)
+        layout=config.layout)

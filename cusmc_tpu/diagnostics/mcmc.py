@@ -3,7 +3,7 @@
 The reference ships no convergence tooling of any kind (its MH driver
 returns raw draws, ``/root/reference/src/mcmc.cpp:239-309``); these are
 the standard companions to the multi-chain samplers in ``mcmc/`` —
-exactly the quantities the many-chain TPU layout makes cheap, since both
+exactly the quantities the many-chain layout makes cheap, since both
 reduce over the chain axis the samplers already batch.
 
 Implementations follow the Stan reference formulations (Vehtari et al.

@@ -4,7 +4,7 @@ Replaces the reference's virtual ``StatisticalDistribution`` base class
 (``/root/reference/inst/include/statistics.hpp:36-96``) and its string-keyed
 factory registry ``distributions_t`` (``inst/include/mcmc.hpp:24-25``,
 registered per call at ``src/mcmc.cpp:252-266``). Here a distribution is an
-immutable pytree (flax.struct dataclass) whose array fields trace through
+immutable pytree (``utils.struct`` dataclass) whose array fields trace through
 ``jit``/``scan``/``shard_map``; there is no CPU/GPU method split — the same
 pure functions run on any backend.
 
@@ -17,7 +17,7 @@ from typing import Callable, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 
 from cusmc_tpu.distributions.mvn import mvn_logpdf, mvn_sample
 from cusmc_tpu.distributions.mvt import mvt_logpdf, mvt_sample

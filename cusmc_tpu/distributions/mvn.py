@@ -1,6 +1,6 @@
 """Multivariate normal: log-density and sampling as pure JAX functions.
 
-TPU-native replacement for the reference's MVN layer:
+Replacement for the reference's MVN layer:
 - CPU pdf ``norm * exp(-0.5 a^T V^-1 a)`` at
   ``/root/reference/src/statistics.cc.cpp:171-196`` and its CUDA 3-kernel chain
   (``src/mvn_dist.cu.cpp:455-668``) become a single fused log-density over a
@@ -41,10 +41,9 @@ def make_mvn_logprob(mean: jnp.ndarray, cov: jnp.ndarray,
     depend on ``x`` precomputed (Cholesky, its explicit inverse, log-norm).
 
     For repeated evaluation against one fixed target — MCMC scan bodies
-    (BASELINE configs 1/2/5) — each call is one ``[..., d] @ [d, d]`` MXU
+    (BASELINE configs 1/2/5) — each call is one ``[..., d] @ [d, d]``
     matmul plus a row reduction, replacing the per-call triangular solve of
-    ``mvn_logpdf_cov``. Measured on the d=128 / 1024-chain MH step: 1.38x
-    end-to-end (benchmarks/probe_mh.py).
+    ``mvn_logpdf_cov``.
     """
     mean = jnp.asarray(mean)
     L = cov_sqrt(jnp.asarray(cov, mean.dtype), "cholesky")
@@ -53,14 +52,9 @@ def make_mvn_logprob(mean: jnp.ndarray, cov: jnp.ndarray,
     const = -0.5 * (d * _LOG_2PI + log_det_from_chol(L))
 
     def log_prob(x: jnp.ndarray) -> jnp.ndarray:
-        # "highest" (default): TPU matmul default precision is bf16
-        # passes — ~2e-3 relative on the quadform vs ~1e-6 at full f32.
-        # For RW-MH the matmul is a minor share (RNG dominates), so the
-        # accuracy is free; for GRADIENT samplers at d=128 the matmuls
-        # bind and precision="default" measured +16% on HMC with
-        # acceptance unchanged (the sampler stays exact for the
-        # ~2e-3-perturbed target — same class of trade as bf16 states
-        # in the filter).
+        # "highest" (default): full f32. "default" lets the GPU run the
+        # f32 matmul in TF32 (~1e-3 relative on the quadform); the
+        # sampler stays exact for that perturbed target.
         z = jnp.matmul(x - mean, Linv_t, precision=_PRECISIONS[precision])
         return const - 0.5 * jnp.sum(z * z, axis=-1)
 

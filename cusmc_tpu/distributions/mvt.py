@@ -1,6 +1,6 @@
 """Multivariate Student-T: log-density and sampling as pure JAX functions.
 
-TPU-native replacement for the reference MVT layer:
+Replacement for the reference MVT layer:
 - CPU pdf with Gamma-ratio normalization at
   ``/root/reference/src/statistics.cc.cpp:295-324`` and CUDA kernels
   (``src/mvt_dist.cu.cpp:356-571``) -> one fused log-density.
@@ -43,9 +43,7 @@ def make_mvt_logprob(mean: jnp.ndarray, cov: jnp.ndarray, df,
     factor, its explicit inverse, and the normalizer precomputed.
 
     The MCMC-scan analogue of :func:`make_mvn_logprob`: each call is one
-    MXU matmul + row quadform + ``log1p`` instead of a triangular solve.
-    Measured 1.38x on the d=128 / 1024-chain MH step and it compounds with
-    rbg keys to 2.1x (benchmarks/probe_mh.py; RESULTS.md).
+    matmul + row quadform + ``log1p`` instead of a triangular solve.
     """
     mean = jnp.asarray(mean)
     dt = mean.dtype
@@ -61,14 +59,9 @@ def make_mvt_logprob(mean: jnp.ndarray, cov: jnp.ndarray, df,
     )
 
     def log_prob(x: jnp.ndarray) -> jnp.ndarray:
-        # "highest" (default): TPU matmul default precision is bf16
-        # passes — ~2e-3 relative on the quadform vs ~1e-6 at full f32.
-        # For RW-MH the matmul is a minor share (RNG dominates), so the
-        # accuracy is free; for GRADIENT samplers at d=128 the matmuls
-        # bind and precision="default" measured +16% on HMC with
-        # acceptance unchanged (the sampler stays exact for the
-        # ~2e-3-perturbed target — same class of trade as bf16 states
-        # in the filter).
+        # "highest" (default): full f32. "default" lets the GPU run the
+        # f32 matmul in TF32 (~1e-3 relative on the quadform); the
+        # sampler stays exact for that perturbed target.
         z = jnp.matmul(x - mean, Linv_t, precision=_PRECISIONS[precision])
         quad = jnp.sum(z * z, axis=-1)
         return log_norm - 0.5 * (df + d) * jnp.log1p(quad / df)

@@ -10,7 +10,7 @@ mesh with ``pmean`` when chain-sharded) — drives the classic AM proposal
 
 with Robbins-Monro scalar adaptation of s toward 0.234 on top. Pooling
 across many chains makes the covariance estimate converge far faster than
-single-chain AM — this is where the multi-chain TPU layout pays off
+single-chain AM — this is where the multi-chain layout pays off
 statistically, not just in throughput.
 
 One ``lax.scan``; the [d, d] Cholesky refresh per sweep is negligible next
@@ -23,7 +23,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 
@@ -78,8 +78,8 @@ def adaptive_mh_sampler(
     (nested scan: factorize once per block of k) instead of every sweep.
     The running moments still absorb every sweep; only the FACTOR lags up
     to k−1 sweeps — standard practice for AM, where the covariance
-    estimate moves slowly, and the d=128 [d, d] Cholesky is a sequential
-    op the TPU pays ~40% of the whole step for (benchmarks/probe_mh.py).
+    estimate moves slowly, and the d=128 [d, d] Cholesky is a small
+    sequential op on every sweep.
     ``noise_dtype=jnp.bfloat16`` draws proposal noise in bf16 — exact for
     this symmetric proposal (see mcmc/metropolis.py).
     """

@@ -1,6 +1,6 @@
-"""ChEES-HMC: adaptive-trajectory-length HMC for many-chain TPU sampling.
+"""ChEES-HMC: adaptive-trajectory-length HMC for many-chain sampling.
 
-The NUTS-class capability, TPU-first. NUTS adapts trajectory length per
+The NUTS-class capability, accelerator-first. NUTS adapts trajectory length per
 chain by building a doubling tree with data-dependent recursion — a
 control-flow shape that serializes on accelerators and defeats batching
 (each chain would walk a different tree). ChEES-HMC (Hoffman, Radul &
@@ -20,7 +20,7 @@ the trajectory already computed (final velocity = momentum):
 with w_c the chain's Metropolis acceptance probability. Cross-chain
 means are exactly the pooled statistics the other samplers psum over the
 mesh — the criterion gets BETTER with more chains, which is the whole
-TPU story. Trajectory jitter uses the base-2 Halton sequence (the
+point of the many-chain layout. Trajectory jitter uses the base-2 Halton sequence (the
 paper's variance-reduction choice); the leapfrog loop is a
 ``lax.fori_loop`` with a data-dependent trip count (no wasted masked
 gradient evaluations — on average half of the static-bound cost of
@@ -37,7 +37,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.mcmc.mala import _value_and_grad_batched

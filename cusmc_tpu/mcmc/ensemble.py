@@ -7,7 +7,7 @@ random partner j), so correlated and badly-scaled targets need neither a
 tuned proposal covariance (adaptive-MH) nor gradients (MALA/HMC) — the
 move is invariant under every affine reparametrization.
 
-TPU mapping: the standard parallelizable variant updates the ensemble in
+Device mapping: the standard parallelizable variant updates the ensemble in
 two half-batches (each half proposes against the OTHER, frozen, half),
 so one sweep is two fully vectorized [W/2, d] updates inside the usual
 ``lax.scan`` — no per-walker loop. Partner selection is the one gather
@@ -24,7 +24,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 

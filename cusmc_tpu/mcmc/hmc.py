@@ -6,11 +6,11 @@ explore the target far faster than one-step methods on correlated,
 high-dimensional densities. The reference has no gradient machinery at all
 (SURVEY.md §2); JAX supplies exact gradients of any log-density.
 
-TPU mapping: chains are a [C, d] batch axis — every leapfrog step is a
+Device mapping: chains are a [C, d] batch axis — every leapfrog step is a
 batched gradient evaluation (one forward + one backward over the whole
 chain block); the L-step integrator is a ``lax.scan``, the sweep loop
 another, so the entire sampler is one compiled program. Fixed L keeps
-control flow static (a NUTS-style dynamic tree would serialize on TPU;
+control flow static (a NUTS-style dynamic tree would serialize chains;
 fixed-length HMC with jittered L is the standard accelerator-friendly
 choice). Step size adapts by Robbins-Monro toward 0.8 pooled acceptance
 (``pmean`` over ``axis_name`` when chain-sharded).
@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.mcmc.mala import _value_and_grad_batched

@@ -11,7 +11,7 @@ model parameters theta:
     accept w.p. min(1, exp(logZ' + logprior' - logZ - logprior))
 
 The whole chain (MH loop WITH a full particle filter per iteration) is one
-``lax.scan`` under ``jit`` — the TPU executes thousands of complete filters
+``lax.scan`` under ``jit`` — the device executes thousands of complete filters
 without host round-trips. Multiple chains = ``jax.vmap`` over this function.
 """
 
@@ -21,7 +21,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.smc.particle_filter import bootstrap_filter

@@ -11,10 +11,10 @@ state swaps accepted with probability
 
 so hot rungs ferry mass between modes and the cold rung stays exact.
 
-TPU-native design: replicas are just one more leading batch axis —
+Design: replicas are just one more leading batch axis —
 state is ``[R, C, d]`` (R rungs x C chains per rung), every within-rung
 sweep is a single batched proposal + one log-density evaluation over
-all R*C points (one MXU matmul under ``make_*_logprob`` closures), and
+all R*C points (one matmul under ``make_*_logprob`` closures), and
 the swap phase is a vectorized even/odd pair pass (standard DEO
 alternation; Syed et al. 2021 show non-reversible even/odd alternation
 dominates random pair choice) — no per-rung Python, no host control
@@ -29,7 +29,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 
@@ -206,8 +206,8 @@ def parallel_tempering_sampler(
         take_dn = jnp.concatenate(
             [jnp.zeros((1, c), bool), acc], axis=0)      # [R, C] r <- r-1
         # Adjacent-only exchange: two rung-axis rolls + selects instead
-        # of a rung-varying gather (rolls are near-free on TPU, gathers
-        # are not — the same lesson as the filter's roll resampler).
+        # of a rung-varying gather (the same shape as the filter's roll
+        # resampler).
         def exchange(a):
             up = jnp.roll(a, -1, axis=0)                 # row r = a[r+1]
             dn = jnp.roll(a, 1, axis=0)                  # row r = a[r-1]

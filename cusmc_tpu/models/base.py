@@ -11,7 +11,7 @@ Required (batch layout, x as [N, d]):
     observation_logpdf(y, x)   -> ll [N]
     state_dim: int
 
-Optional (packed layout, x as [d, N]; enables the TPU fast path):
+Optional (packed layout, x as [d, N]; enables the packed fast path):
     sample_initial_packed(key, n) -> [d, n]
     propagate_packed(key, X)      -> [d, n]
     observation_logpdf_packed(y, X) -> [n]
@@ -25,7 +25,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 
 
 def supports_packed(model) -> bool:

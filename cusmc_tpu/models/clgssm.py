@@ -27,7 +27,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 
 
 def _zero_b(params, u, dz):

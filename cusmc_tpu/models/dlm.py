@@ -20,7 +20,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax.scipy.special import gammaln
 
 from cusmc_tpu.distributions.mvn import mvn_logpdf, mvn_sample
@@ -28,6 +28,12 @@ from cusmc_tpu.distributions.mvt import mvt_logpdf, mvt_sample
 from cusmc_tpu.ops.packed import matvec, quadform
 from cusmc_tpu.ops.random import MAX_INTEGER_DF, chi2_integer_df, fast_gamma
 from cusmc_tpu.utils.linalg import chol_sqrt, cov_sqrt
+
+
+def _mm(a, b, out_dtype=None):
+    """Batch-layout matmul at full f32 precision (see ops/packed.py)."""
+    return jnp.matmul(a, b, preferred_element_type=out_dtype,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 class DLM(struct.PyTreeNode):
@@ -50,7 +56,7 @@ class DLM(struct.PyTreeNode):
     per_dim_chi: bool = struct.field(pytree_node=False, default=False)
     # Static copy of df when it is a concrete small integer: enables the
     # exact sum-of-exponentials chi-square (ops/random.chi2_integer_df),
-    # ~4x cheaper than the Marsaglia-Tsang rounds on the packed hot path.
+    # one log pass instead of the Marsaglia-Tsang rounds on the hot path.
     # None when df is traced (e.g. PMMH tunes it) or non-integer.
     df_int: Optional[int] = struct.field(pytree_node=False, default=None)
 
@@ -60,13 +66,11 @@ class DLM(struct.PyTreeNode):
                per_dim_chi: bool = False, state_dtype=None) -> "DLM":
         """``state_dtype`` (e.g. ``jnp.bfloat16``) enables mixed precision:
         the particle state, transition factors (G, W_sqrt, C0_sqrt, m0, F)
-        and their MXU matmuls run in ``state_dtype``, while the weight path
+        and their matmuls run in ``state_dtype``, while the weight path
         (V factors, df, log-densities, resampling) stays in ``dtype``.
-        Matmuls feeding the likelihood accumulate in ``dtype`` (the MXU's
-        native bf16xbf16->f32 mode), so log-evidence stays accurate while
-        HBM traffic over the [d, N] state halves. Measured on v5e at N=1M:
-        d=8 890M -> 1.36B, d=16 808M -> 1.00B particle-steps/s with logZ
-        matching f32 (benchmarks/RESULTS.md d-sweep table)."""
+        Matmuls feeding the likelihood accumulate in ``dtype``
+        (bf16 x bf16 -> f32), so log-evidence stays accurate while the
+        memory traffic over the [d, N] state halves."""
         sdtype = dtype if state_dtype is None else state_dtype
         F = jnp.asarray(F, sdtype)
         G = jnp.asarray(G, sdtype)
@@ -116,12 +120,12 @@ class DLM(struct.PyTreeNode):
     def propagate(self, key: jax.Array, x_prev: jnp.ndarray) -> jnp.ndarray:
         """x_t | x_{t-1}: mean G @ x_prev plus Dist(0, W) noise for a batch
         [..., d] (reference propagate_K, proposal mean at mcmc.cpp:133)."""
-        mean = x_prev @ self.G.T
+        mean = _mm(x_prev, self.G.T)
         return self._sample(key, mean, self.W_sqrt, x_prev.shape[:-1])
 
     def propagate_mean(self, x_prev: jnp.ndarray) -> jnp.ndarray:
         """E[x_t | x_{t-1}] — the APF lookahead point (smc/apf.py)."""
-        return x_prev @ self.G.T
+        return _mm(x_prev, self.G.T)
 
     def lookahead_logpdf(self, y: jnp.ndarray, x_prev: jnp.ndarray) -> jnp.ndarray:
         """EXACT predictive log p(y_t | x_{t-1}) = N(y; F G x, F W F' + V)
@@ -133,14 +137,13 @@ class DLM(struct.PyTreeNode):
         pred_cov = self.F @ self.W_sqrt @ self.W_sqrt.T @ self.F.T \
             + self.V_chol @ self.V_chol.T
         chol = jnp.linalg.cholesky(pred_cov)
-        return mvn_logpdf(y - self.propagate_mean(x_prev) @ self.F.T,
+        return mvn_logpdf(y - _mm(self.propagate_mean(x_prev), self.F.T),
                           0.0, chol)
 
     def observation_logpdf(self, y: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
         """log p(y | x) = log Dist(y - F x; 0, V) for batched x [..., d]
         (reference reweight_G, CPU form at mcmc.cpp:212) — in log space."""
-        resid = y - jnp.matmul(x, self.F.T,
-                               preferred_element_type=self.V_chol.dtype)
+        resid = y - _mm(x, self.F.T, self.V_chol.dtype)
         if self.noise == "mvt":
             return mvt_logpdf(resid, 0.0, self.V_chol, self.df)
         return mvn_logpdf(resid, 0.0, self.V_chol)
@@ -150,7 +153,7 @@ class DLM(struct.PyTreeNode):
             return mvt_sample(key, mean, scale, self.df, shape, self.per_dim_chi)
         return mvn_sample(key, mean, scale, shape)
 
-    # -- packed [d, N] layout (the TPU hot path; see ops/packed.py) -------
+    # -- packed [d, N] layout (the hot path; see ops/packed.py) -----------
 
     def sample_initial_packed(self, key: jax.Array, n: int) -> jnp.ndarray:
         """x_0 draws in packed layout [d, n]."""
@@ -196,11 +199,11 @@ class DLM(struct.PyTreeNode):
             gdtype = self.V_chol.dtype
             if self.df_int is not None:
                 # Exact one-log chi-square for small integer df — the
-                # common case and ~4x cheaper (ops/random.chi2_integer_df).
+                # common case, one log pass (ops/random.chi2_integer_df).
                 g = chi2_integer_df(kg, self.df_int, shape, gdtype)
             else:
-                # fast_gamma: fixed-round Marsaglia-Tsang, ~40x cheaper
-                # than jax.random.gamma's rejection loop on TPU.
+                # fast_gamma: fixed-round Marsaglia-Tsang, no
+                # data-dependent rejection loop (ops/random.py).
                 g = 2.0 * fast_gamma(kg, 0.5 * df, shape, gdtype)
             return mean + lz * jnp.sqrt(df / g).astype(dtype)
         z = jax.random.normal(key, (d, n), dtype)

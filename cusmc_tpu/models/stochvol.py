@@ -10,7 +10,7 @@ The observation density is log-concave in x and heavy-tailed in y; a
 bootstrap filter on this model exercises exactly the weight-degeneracy
 machinery (ESS-adaptive resampling, log-space weights) the linear demo
 cannot. State is univariate (d=1) but the layout machinery is shared, and
-a packed implementation is provided for the TPU fast path.
+a packed implementation is provided for the packed fast path.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 
 _LOG_2PI = math.log(2.0 * math.pi)
 

@@ -22,7 +22,7 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 
 
 class UNGM(struct.PyTreeNode):

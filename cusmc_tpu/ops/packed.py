@@ -1,34 +1,34 @@
-"""Packed (structure-of-arrays) particle ops: state is [d, N], N on lanes.
+"""Packed (structure-of-arrays) particle ops: state is [d, N], N minor.
 
-Why: TPU vector registers are (8, 128) tiles with 128 lanes minor. The
-reference-style [N, d] layout puts the tiny state dimension (d=2..128) on
-lanes, wasting up to 126/128 of every vector op and driving XLA to pick
-catastrophic tilings (measured 25 ms for a [1M,2]x[2,2] matmul on v5e —
-vs ~30 us for the same math in [d, N] layout). All hot-loop compute in this
-framework therefore runs packed: particles on lanes, state components on
-the sublane axis.
+All hot-loop compute in this framework runs packed: the particle axis is
+the contiguous one, so every elementwise pass, reduction and rotation over
+particles reads whole cache lines, and a propagate is one ``[m, d] @
+[d, N]`` matmul instead of N tiny ones. This replaces the reference's
+per-particle tiled CUDA matvecs (``src/mvn_dist.cu.cpp:33-172``,
+TILE_SIZE=16).
 
-``matvec`` is a plain MXU matmul ``A @ X``: measured on v5e at N=1M it
-beats an unrolled d^2 vector-FMA formulation at EVERY d (d=2: 13 vs 34 us;
-d=8: 19 vs 362 us; d=16: 149 vs 1553 us — the unroll materializes row
-intermediates, while the MXU streams [d, N] once at full bandwidth). This
-replaces the reference's per-particle tiled CUDA matvecs
-(``/root/reference/src/mvn_dist.cu.cpp:33-172``, TILE_SIZE=16).
+Precision: f32 matmuls are pinned to ``Precision.HIGHEST``. At the
+default precision the GPU may run an f32 product in TF32 (10 mantissa
+bits), which puts ~1e-3 relative error on the propagated state and the
+likelihood quadform at d=128; the on-device check in ``chip_smoke.py``
+measures both (numbers in PERF.md).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 
 def matvec(A: jnp.ndarray, X: jnp.ndarray, out_dtype=None) -> jnp.ndarray:
-    """[m, d] @ [d, N] -> [m, N] batched over lanes (MXU).
+    """[m, d] @ [d, N] -> [m, N] batched over particles, at full f32
+    precision (bf16 operands multiply exactly).
 
     ``out_dtype`` sets the accumulation/output type — the mixed-precision
-    path feeds bfloat16 operands with float32 accumulation (the MXU's
-    native mode), so residuals carry no accumulation rounding on top of
-    the stored-state rounding."""
-    return jnp.matmul(A, X, preferred_element_type=out_dtype)
+    path feeds bfloat16 operands with float32 accumulation, so residuals
+    carry no accumulation rounding on top of the stored-state rounding."""
+    return jnp.matmul(A, X, preferred_element_type=out_dtype,
+                      precision=lax.Precision.HIGHEST)
 
 
 def quadform(Linv: jnp.ndarray, R: jnp.ndarray) -> jnp.ndarray:

@@ -1,7 +1,7 @@
 """Fast fixed-round random samplers for the hot loop.
 
-``jax.random.gamma`` lowers to a data-dependent rejection loop that costs
-~5 ms per [1M] draw on v5e — 20x the entire rest of the MVT filter step.
+``jax.random.gamma`` lowers to a data-dependent rejection loop (a
+``while_loop`` over the whole array until every lane accepts).
 ``fast_gamma`` is a Marsaglia-Tsang (2000) squeeze sampler with a FIXED
 number of proposal rounds, fully vectorized (no while_loop): each round
 accepts with p >~ 0.95 for alpha >= 1, so after 4 rounds fewer than ~1e-5
@@ -78,8 +78,7 @@ def chi2_integer_df(key: jax.Array, df: int, shape,
     Construction: chi2_{2m+r} = 2 * sum_{i<m} Exp(1) + r * z^2 with
     r = df mod 2. The m exponentials come from -log(prod_{i<m} U_i): ONE
     log over the whole array instead of Marsaglia-Tsang's 8 transcendental
-    passes (4 rounds x (log u, log v)) — measured ~4x cheaper at N=1M on
-    v5e, where the gamma draw was ~70%% of the whole MVT filter step.
+    passes (4 rounds x (log u, log v)).
 
     Exact (no fixed-round fallback tail), unlike ``fast_gamma``.
     """

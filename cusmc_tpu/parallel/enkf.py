@@ -18,11 +18,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from cusmc_tpu.parallel.mesh import jit_shard_map, PARTICLE_AXIS
 from cusmc_tpu.smc.enkf import EnKFResult, ensemble_kalman_filter
 
-try:  # jax >= 0.7 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def sharded_ensemble_kalman_filter(
     key: jax.Array,

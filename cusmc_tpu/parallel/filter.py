@@ -25,11 +25,6 @@ from cusmc_tpu.parallel.resampling import (
 )
 from cusmc_tpu.smc.particle_filter import FilterResult, bootstrap_filter
 
-try:  # jax >= 0.7 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def sharded_bootstrap_filter(
     key: jax.Array,

@@ -17,11 +17,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from cusmc_tpu.mcmc.metropolis import MHResult, metropolis_hastings_sampler
 from cusmc_tpu.parallel.mesh import jit_shard_map, CHAIN_AXIS
 
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def sharded_mh_sampler(
     key: jax.Array,
@@ -43,8 +38,8 @@ def sharded_mh_sampler(
         raise ValueError(f"chains={c} not divisible by axis size {n_shards}")
     if n_shards == 1:
         # 1-shard mesh: pooling is the identity — run the unsharded
-        # sampler (same key fold as shard 0) and skip the ~13% SPMD
-        # program overhead (SCALING_r05.json mcmc rows).
+        # sampler (same key fold as shard 0) and skip the SPMD program
+        # overhead.
         return metropolis_hastings_sampler(
             jax.random.fold_in(key, 0), log_prob, init_x, num_steps,
             keep_samples=keep_samples, **mh_kwargs)

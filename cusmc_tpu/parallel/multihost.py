@@ -1,11 +1,11 @@
 """Multi-host (DCN) initialization and process-spanning meshes.
 
 The reference is strictly single-process/single-GPU (no MPI/NCCL anywhere —
-``/root/reference/src/Makevars:14``; SURVEY.md §2). The TPU-native scale-out
-path is: ``jax.distributed.initialize`` once per host process, then the SAME
+``/root/reference/src/Makevars:14``; SURVEY.md §2). The scale-out path
+is: ``jax.distributed.initialize`` once per host process, then the SAME
 SPMD programs (``sharded_bootstrap_filter``, ``sharded_mh_sampler``) over a
-mesh spanning all hosts' devices — XLA routes intra-slice collectives over
-ICI and cross-host traffic over DCN automatically.
+mesh spanning all hosts' devices — XLA routes collectives within a host
+and across hosts automatically.
 
 Single-host runs need none of this; every function degrades gracefully.
 """
@@ -23,8 +23,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize JAX's multi-host runtime (idempotent, no-op for 1 host).
 
-    On TPU pods the three arguments auto-detect from the environment; on
-    CPU/GPU clusters pass them explicitly (coordinator "host:port"). Call
+    Pass the three arguments explicitly (coordinator "host:port"); only
+    managed cluster environments can auto-detect them. Call
     before any device access in every host process.
     """
     if num_processes is not None and num_processes <= 1:

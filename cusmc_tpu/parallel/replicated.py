@@ -25,11 +25,6 @@ from cusmc_tpu.parallel.resampling import (
 )
 from cusmc_tpu.smc.particle_filter import FilterResult, bootstrap_filter
 
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def replicated_sharded_filters(
     key: jax.Array,

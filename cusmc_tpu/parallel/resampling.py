@@ -3,23 +3,22 @@
 The hard part of sharded SMC (SURVEY.md §7 "Hard parts"): resamplers need
 *global* weight information and ancestor states may live on other shards.
 Weights are always cheap — ``all_gather`` of the log-weight vector is O(N)
-scalars (4 MB at N=1M f32) and rides ICI. The STATE exchange is where the
+scalars (4 MB at N=1M f32). The STATE exchange is where the
 strategies differ:
 
 - ``ring_cdf_resample_op`` (CDF family, packed [d, L] layout, the
   default): each shard computes SORTED global ancestors for its own slots
   from the gathered weights, then the state blocks make one trip around
   the ring (P-1 ``ppermute`` rounds); each passing block is mined for the
-  slots whose ancestor lives in it via a LOCAL monotone gather
-  (``ops/monotone_gather.take_columns`` — the Pallas window kernel on
-  TPU). Per-device state memory stays O(N/P * d); nothing ever
+  slots whose ancestor lives in it via a LOCAL column gather
+  (``ops/monotone_gather.take_columns``). Per-device state memory stays O(N/P * d); nothing ever
   materializes the global [N, d] array (closes SURVEY.md §7's
   "avoid all-gathering states at large N*d").
 - ``roll_metropolis_sharded_op`` (packed, gather-free): per-sweep GLOBAL
   uniform proposals via one dynamic-source ppermute + local lane roll per
   sweep (``exchange="global"``, the default — unbiased for any weight
   concentration), or the round-1 single rotated 2-shard window
-  (``exchange="windowed"`` — 10x less ICI traffic, but a particle can
+  (``exchange="windowed"`` — 10x less collective traffic, but a particle can
   parent at most ~2*N/P offspring per step, which biases resampling when
   one weight dominates; fine in healthy-ESS regimes).
 - ``allgather_resample_op`` (batch [L, d] layout): the round-1 fallback —
@@ -58,29 +57,20 @@ def _to_exp(logw_global: jnp.ndarray) -> jnp.ndarray:
 def _search_sorted_positions(w_g: jnp.ndarray, positions_01: jnp.ndarray
                              ) -> jnp.ndarray:
     """Global ancestors for this shard's SORTED positions in [0, 1):
-    the single-chip weight pipeline applied to the gathered exp weights
-    — ``ops/cumsum.blocked_cumsum`` (one HBM pass, monotone by
-    construction) + the merge-path search kernel
-    (``ops/monotone_gather.inverse_cdf_search``), replacing the round-3
-    ``cumsum(softmax)`` + ``searchsorted`` (~160 ms/1M-queries of binary
-    -search gathers, RESULTS.md per-op table) that made the sharded
-    ancestor computation the per-step serial cost at pod scale."""
-    from cusmc_tpu.ops.cumsum import blocked_cumsum
-    from cusmc_tpu.ops.monotone_gather import inverse_cdf_search
+    the single-device weight pipeline (cumsum + sorted search,
+    ``ops/monotone_gather.inverse_cdf_search``) applied to the gathered
+    exp weights."""
+    from cusmc_tpu.ops.monotone_gather import inverse_cdf_search, weight_cdf
 
-    cdf, cdf128 = blocked_cumsum(w_g)
-    if cdf128 is None:
-        cdf128 = cdf[127::128] if cdf.shape[0] % 128 == 0 else None
-    total = cdf128[-1] if cdf128 is not None else cdf[-1]
-    return inverse_cdf_search(cdf, positions_01.astype(cdf.dtype) * total,
-                              cdf128=cdf128)
+    cdf = weight_cdf(w_g)
+    return inverse_cdf_search(cdf, positions_01.astype(cdf.dtype) * cdf[-1])
 
 
 def sharded_sorted_positions_fn(name: str, axis_name: str, n_global: int,
                                 n_local: int) -> Callable:
     """Single source of truth for this shard's SORTED resampling positions
-    in [0, 1) (round 5, VERDICT weak #6: previously duplicated between
-    ``make_sharded_ancestor_fn`` and ``ring_cdf_resample_op``).
+    in [0, 1), shared by ``make_sharded_ancestor_fn`` and
+    ``ring_cdf_resample_op``.
     ``key`` must be identical on all shards; systematic shares one global
     offset, stratified/multinomial fold the shard index in."""
     if name == "systematic":
@@ -193,11 +183,9 @@ def _sorted_sharded_residual_fn(axis_name: str, n_global: int,
     its own slots' queries. Both families are sorted, but the stitched
     vector is sorted only WITHIN each family (a remainder ancestor can
     precede the last deterministic one), so on the shard holding the
-    n_det boundary the ring exchange's ``take_columns`` may hit its
-    runtime non-monotone fallback for a round — correctness is
-    unaffected (equality with the single-device law is tested)."""
-    from cusmc_tpu.ops.cumsum import blocked_cumsum
-    from cusmc_tpu.ops.monotone_gather import inverse_cdf_search
+    n_det boundary the ring exchange mines by true min/max range, not
+    by first/last (equality with the single-device law is tested)."""
+    from cusmc_tpu.ops.monotone_gather import inverse_cdf_search, weight_cdf
     from cusmc_tpu.resampling.classic import _residual_positions
 
     def fn(key, w_g):
@@ -206,14 +194,14 @@ def _sorted_sharded_residual_fn(axis_name: str, n_global: int,
         s1 = jnp.sum(w)
         nw = w * (n_global / s1)
         counts = jnp.floor(nw)
-        ccum, c128 = blocked_cumsum(counts)
+        ccum = weight_cdf(counts)
         n_det = jnp.minimum(ccum[-1], n_global).astype(jnp.int32)
-        rcdf, r128 = blocked_cumsum(jnp.maximum(nw - counts, 0.0))
+        rcdf = weight_cdf(jnp.maximum(nw - counts, 0.0))
         slots = _global_slots(n_local, axis_name).astype(wdt)
         # Deterministic-grid queries for my slots (clamped inside the
         # active range; outputs past n_det are replaced below).
         p_det = jnp.minimum(slots + 0.5, n_det.astype(wdt) - 0.5)
-        a_det = inverse_cdf_search(ccum, p_det, cdf128=c128)
+        a_det = inverse_cdf_search(ccum, p_det)
         # Remainder order statistics: common key -> all shards draw the
         # SAME global [n_global] vector (cheap: one uniform pass) and
         # slice their slots' entries; draw k belongs to slot n_det + k.
@@ -236,10 +224,9 @@ def _sorted_sharded_residual_fn(axis_name: str, n_global: int,
                                           start, n_local)
         mask = slots.astype(jnp.int32) < n_det
         # Deterministic slots are a PREFIX of this shard's slots; zero
-        # their (wrapped-garbage) queries so the search kernel's
-        # sorted-queries invariant holds — their ranks are discarded.
+        # their (wrapped-garbage) queries; their ranks are discarded.
         v_mine = jnp.where(mask, 0.0, v_mine)
-        a_res = inverse_cdf_search(rcdf, v_mine, cdf128=r128)
+        a_res = inverse_cdf_search(rcdf, v_mine)
         return jnp.where(mask, jnp.minimum(a_det, n_global - 1), a_res)
 
     return fn
@@ -262,11 +249,11 @@ def ring_cdf_resample_op(name: str, axis_name: str, n_global: int,
     unconditional P-1-round full ring): a shard's sorted ancestors span
     ~ceil(L * concentration) contiguous source blocks — typically 1-2 in
     healthy regimes — so moving the full state P-1 hops per step is
-    O(P) wasted traffic and a P-deep serialized permute chain at pod
-    scale. Instead:
+    O(P) wasted traffic and a P-deep serialized permute chain on large
+    meshes. Instead:
 
-    1. Round 0 mines the shard's OWN block (fused into the merge-path
-       search kernel for the CDF families).
+    1. Round 0 mines the shard's OWN block (in the same
+       ``inverse_cdf_apply`` call as the search, for the CDF families).
     2. ``ring_window`` (K) static bidirectional neighbor rounds: two
        chained ppermute rings (forward p+1..p+K, backward p-1..p-K),
        each round's mining gated on ancestor-range intersection. These
@@ -320,25 +307,19 @@ def ring_cdf_resample_op(name: str, axis_name: str, n_global: int,
     perm_bwd = [((s - 1) % num_shards, s) for s in range(num_shards)]
 
     def op(key, X, w_or_logw, pred=None):
-        from cusmc_tpu.ops.cumsum import blocked_cumsum
-        from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply
+        from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply, weight_cdf
 
         w_g = lax.all_gather(w_or_logw, axis_name, tiled=True)
         p = lax.axis_index(axis_name)
         base0 = p * jnp.int32(n_local)
         slots = _global_slots(n_local, axis_name)
         if fused_local:
-            # Round-0 fusion: ONE merge-path kernel pass both ranks the
-            # shard's queries in the gathered cdf AND gathers the
-            # ancestors that live in the LOCAL block (local_base mode)
-            # — at P=1 this is the same single kernel as the unsharded
-            # fast path.
-            cdf, cdf128 = blocked_cumsum(w_g if exp_in
-                                         else _to_exp(w_g))
-            total = cdf128[-1] if cdf128 is not None else cdf[-1]
-            pos = sorted_positions(key) * total
-            vals0, a = inverse_cdf_apply(cdf, pos, X, cdf128=cdf128,
-                                         local_base=base0)
+            # Round 0: one call both ranks the shard's queries in the
+            # gathered cdf AND gathers the ancestors that live in the
+            # LOCAL block (local_base mode).
+            cdf = weight_cdf(w_g if exp_in else _to_exp(w_g))
+            pos = sorted_positions(key) * cdf[-1]
+            vals0, a = inverse_cdf_apply(cdf, pos, X, local_base=base0)
         else:
             a = ancestor_fn(key, w_g)
         if pred is not None:
@@ -369,7 +350,7 @@ def ring_cdf_resample_op(name: str, axis_name: str, n_global: int,
         mined = jnp.int32(0)
         need0 = need_at(base0)
         if fused_local:
-            # The fused kernel already gathered in-block ancestors.
+            # inverse_cdf_apply already gathered in-block ancestors.
             # pred gating: when skipping, a == slots (all in-block)
             # but the state must stay X, so the overwrite is gated
             # on pred too.
@@ -462,7 +443,7 @@ def roll_metropolis_sharded_op(axis_name: str, n_global: int, n_local: int,
     marginally uniform over all N particles. This matches the
     single-device roll scheme's proposal law exactly: unbiased for ANY
     weight concentration (a w->1 particle can parent ~N offspring).
-    ICI traffic: num_steps x (d+1) x L floats per step.
+    Collective traffic: num_steps x (d+1) x L floats per step.
 
     ``exchange="binary"``: same proposal law and BITWISE-identical
     results to "global" (identical key derivation; the rotate is pure
@@ -472,7 +453,7 @@ def roll_metropolis_sharded_op(axis_name: str, n_global: int, n_local: int,
     O(B*P) (measured at P=64, B=10: 640 ppermute instances / 1.5 MB
     StableHLO for "global" vs 6 / O(10x smaller) here —
     benchmarks/compile_scale.py), at B*log2(P) block-traffic instead of
-    B. Prefer it at pod scale where program size dominates.
+    B. Prefer it on large meshes, where program size dominates.
 
     ``exchange="windowed"`` (round 1 behavior): ONE global rotation per
     step places a 2-shard window; all B sweeps propose inside it. 10x less
@@ -503,12 +484,12 @@ def roll_metropolis_sharded_op(axis_name: str, n_global: int, n_local: int,
     exp_in = weights == "exp"
 
     if num_shards == 1 and exchange in ("global", "binary"):
-        # P=1 specialization (round 5, VERDICT weak #1): the per-sweep
+        # P=1 specialization: the per-sweep
         # dynamic-source ppermute is provably the identity on a 1-shard
-        # mesh, yet its lax.switch indirection measured a 19% structural
-        # overhead on-chip (SCALING_r04.json: 1.184B vs 1.458B). Run the
-        # unsharded roll sweeps — the exact single-device program — so
-        # a 1-device-mesh sharded filter pays only shard_map framing.
+        # mesh, yet its lax.switch indirection adds structural overhead
+        # to every sweep. Run the unsharded roll sweeps — the exact
+        # single-device program — so a 1-device-mesh sharded filter
+        # pays only shard_map framing.
         from cusmc_tpu.resampling.rolls import (
             roll_metropolis_sweeps,
             roll_metropolis_sweeps_expspace,
@@ -569,9 +550,9 @@ def roll_metropolis_sharded_op(axis_name: str, n_global: int, n_local: int,
                         for kq, _, _ in sweep_keys])
 
         if exchange == "binary":
-            # Batched binary-decomposition rotate (round 5, VERDICT
-            # weak #1): ONE chain of ceil(log2 P) static ppermutes
-            # moves all B candidate blocks at once — per-slice bits of
+            # Batched binary-decomposition rotate: ONE chain of
+            # ceil(log2 P) static ppermutes moves all B candidate
+            # blocks at once — per-slice bits of
             # the common shift vector select which slices advance at
             # each doubling stage. O(log P) collective instances in
             # the program instead of the switch's B*P branch bodies

@@ -9,11 +9,10 @@ indices [N].
 
 All three CDF resamplers factor as (sorted positions in [0,1)) x (inverse
 CDF). The position generators are exposed in ``POSITION_FNS`` so the packed
-filter path can feed them to the fused window-walk kernel
-(``cusmc_tpu.ops.monotone_gather.inverse_cdf_apply``) which computes
-ancestors in-kernel AND applies them in one HBM pass. The functions here
-use the XLA rank-by-merge inversion (no searchsorted binary search, which
-costs ~160 ms at N=1M on v5e) and are the CPU/batch-layout/oracle path.
+filter path can feed them to ``cusmc_tpu.ops.monotone_gather.
+inverse_cdf_apply``, which computes the ancestors AND applies them to the
+packed state. Every inversion here goes through the same search
+(``inverse_cdf_search``).
 """
 
 from __future__ import annotations
@@ -21,40 +20,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from cusmc_tpu.ops.monotone_gather import inverse_cdf_search, weight_cdf
+
 
 def _normalized_weights(log_weights: jnp.ndarray) -> jnp.ndarray:
     return jax.nn.softmax(log_weights)
 
 
 def _inverse_cdf(positions: jnp.ndarray, log_weights: jnp.ndarray) -> jnp.ndarray:
-    """Ancestors a_i with cdf[a_i - 1] <= positions_i < cdf[a_i], for
-    SORTED positions (all resamplers here produce sorted positions by
-    construction).
-
-    Rank-by-merge instead of searchsorted: in the ascending stable merge
-    of [cdf, positions], position i lands at index (#cdf <= p_i) + i, so
-    a_i = merged_rank(p_i) - i. Two argsorts and slice ops — searchsorted's
-    binary search is ~20 rounds of random gathers and measured 160 ms at
-    N=1M on v5e versus ~4 ms for the argsorts."""
-    n = log_weights.shape[0]
-    cdf = jnp.cumsum(_normalized_weights(log_weights))
-    a = _merge_rank(cdf, positions)
-    # Clip guards the final bin (cdf[-1] may round below 1.0 in f32).
-    return jnp.clip(a, 0, n - 1).astype(jnp.int32)
-
-
-def _merge_rank(sorted_ref: jnp.ndarray, sorted_queries: jnp.ndarray
-                ) -> jnp.ndarray:
-    """#(sorted_ref <= q_i) for each sorted query (searchsorted
-    side='right' semantics without the binary-search gathers): the stable
-    ascending merge puts ref entries before equal queries, so query i's
-    merged rank is (#ref <= q_i) + i."""
-    m = sorted_ref.shape[0]
-    merged = jnp.concatenate(
-        [sorted_ref, sorted_queries.astype(sorted_ref.dtype)])
-    order = jnp.argsort(merged)
-    rank = jnp.argsort(order)
-    return rank[m:] - jnp.arange(sorted_queries.shape[0])
+    """Ancestors a_i with cdf[a_i - 1] <= positions_i < cdf[a_i]; the
+    search clips to N-1, which guards the final bin (cdf[-1] may round
+    below 1.0 in f32)."""
+    cdf = weight_cdf(_normalized_weights(log_weights))
+    return inverse_cdf_search(cdf, positions)
 
 
 def systematic_positions(key: jax.Array, n: int, dtype=jnp.float32
@@ -102,14 +80,13 @@ def multinomial_ancestors(key: jax.Array, log_weights: jnp.ndarray) -> jnp.ndarr
     ancestor MULTISET is exactly multinomial, returned in sorted order
     (resampling is exchangeable, so any order is valid). The obvious
     ``jax.random.categorical(key, logw, shape=(n,))`` materializes an
-    [n, n] Gumbel tensor — 4 TB at n=1M; it crashed the TPU compiler
-    before this formulation."""
+    [n, n] Gumbel tensor — 4 TB at n=1M."""
     n = log_weights.shape[0]
     return _inverse_cdf(sorted_uniforms(key, n, log_weights.dtype),
                         log_weights)
 
 
-# Sorted-position generators for the fused inverse-CDF kernel
+# Sorted-position generators for the packed inverse-CDF resample
 # (ops/monotone_gather.inverse_cdf_apply): (key, n, dtype) -> positions [n].
 POSITION_FNS = {
     "systematic": systematic_positions,
@@ -125,7 +102,7 @@ def _residual_parts(log_weights: jnp.ndarray):
     w = _normalized_weights(log_weights)
     nw = n * w
     counts = jnp.floor(nw)
-    ccum = jnp.cumsum(counts)
+    ccum = weight_cdf(counts)
     n_det = jnp.minimum(ccum[-1], n).astype(jnp.int32)
     resid = jnp.maximum(nw - counts, 0.0)
     return ccum, n_det, resid
@@ -151,31 +128,26 @@ def residual_ancestors(key: jax.Array, log_weights: jnp.ndarray) -> jnp.ndarray:
     the residual weights ``N*w_i - floor(N*w_i)``. Variance below
     multinomial, randomness below stratified.
 
-    Static-shape formulation (jit/scan-safe), all merge-rank — the round-2
-    version drew the residual part with ``searchsorted`` over iid uniforms
-    (~20 rounds of random gathers, 160 ms at N=1M on v5e). Instead the
-    residual multiset is drawn as SORTED uniform order statistics over the
-    residual CDF — exactly multinomial (resampling is exchangeable, see
+    Static-shape formulation (jit/scan-safe). The residual multiset is
+    drawn as SORTED uniform order statistics over the residual CDF —
+    exactly multinomial (resampling is exchangeable, see
     ``multinomial_ancestors``) — with the traced remainder count R handled
-    by the Renyi representation (``_residual_positions``): no searchsorted,
-    no sorting, one dynamic roll to align the draws to the tail slots.
+    by the Renyi representation (``_residual_positions``): no sorting, one
+    dynamic roll to align the draws to the tail slots.
     """
     n = log_weights.shape[0]
     ccum, n_det, resid = _residual_parts(log_weights)
     slots = jnp.arange(n)
     # Deterministic slots i < n_det: a_i = #{j: ccum_j <= i} (integer
-    # grid inverse CDF via merge-rank).
-    det = _merge_rank(ccum, slots.astype(ccum.dtype))
-    det = jnp.minimum(det, n - 1).astype(jnp.int32)
+    # grid inverse CDF).
+    det = inverse_cdf_search(ccum, slots.astype(ccum.dtype))
     # Residual multiset: R sorted-uniform order statistics through the
     # residual CDF (unnormalized; positions scaled by the total).
-    rcdf = jnp.cumsum(resid)
+    rcdf = weight_cdf(resid)
     v = _residual_positions(key, n, n_det, rcdf.dtype) * rcdf[-1]
-    res = _merge_rank(rcdf, v)
-    res = jnp.clip(res, 0, n - 1).astype(jnp.int32)
-    # Slot i >= n_det uses residual draw i - n_det: roll right by n_det.
-    # (Double-and-slice, not jnp.roll — a traced-shift roll lowers to a
-    # random gather on TPU, ~8 ms per [N] array at N=1M.)
+    res = inverse_cdf_search(rcdf, v)
+    # Slot i >= n_det uses residual draw i - n_det: roll right by n_det
+    # (double-and-slice: contiguous copies, no gather).
     res = jax.lax.dynamic_slice_in_dim(
         jnp.concatenate([res, res]), n - n_det, n)
     return jnp.where(slots < n_det, det, res)

@@ -1,6 +1,6 @@
 """Metropolis resampler (Murray et al., arXiv:1202.6163).
 
-TPU-native replacement for ``Sampler::metropolis_hastings``
+Replacement for ``Sampler::metropolis_hastings``
 (``/root/reference/src/samplers.cpp:7-36``): each particle i runs a B-step
 independent Metropolis chain over ancestor indices, accepting candidate j
 over current k with probability ``min(1, w[j]/w[k])`` (reference

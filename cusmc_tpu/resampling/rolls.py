@@ -1,30 +1,19 @@
-"""Gather-free resampling in packed [d, N] layout — the TPU fast path.
+"""Gather-free Metropolis resampling in packed [d, N] layout.
 
-Random-index gathers are the particle filter's death on TPU: one [1M]
-random gather measures ~8 ms on v5e and the classic Metropolis resampler
-needs B of them per step (~170 ms/step total). Both ops here avoid ALL
-random gathers/scatters:
+The classic Metropolis resampler needs B random-index gathers per step
+(one per sweep). The op here avoids all random gathers and scatters:
 
-1. ``roll_metropolis_resample_op`` — memory-coalesced Metropolis resampler
-   (the Megopolis idea, arXiv:2109.13504, adapted to TPU lane rotations):
+``roll_metropolis_resample_op`` — memory-coalesced Metropolis resampler
+   (the Megopolis idea, arXiv:2109.13504, as whole-array rotations):
    sweep b proposes ancestor j = (i + s_b) mod N for every chain i, with
    one shared random shift s_b per sweep. Marginally each chain's
    candidate sequence is iid uniform over [0, N), so every chain is a
    valid independence-Metropolis chain over the weights, exactly like the
    reference's per-particle chains (``/root/reference/src/samplers.cpp:7-36``)
-   — but candidate WEIGHTS arrive via ``jnp.roll`` (a lane rotation) and
+   — but candidate WEIGHTS arrive via ``jnp.roll`` (a rotation) and
    candidate STATES are applied by roll+select, so the whole B-sweep
-   resample is ~10 coalesced passes instead of 10 random gathers.
+   resample is ~B coalesced passes instead of B random gathers.
    Ancestor indices come free: a = (i + s_b) mod N needs no memory access.
-   Measured: full filter step drops 170 ms -> ~1.7 ms at N=1M (100x).
-
-2. ``systematic_ancestors_sortfree`` — systematic resampling without
-   searchsorted (binary search = 20 random gathers; measured 163 ms at
-   N=1M). Rank-by-merge instead: in the merged sorted array of
-   (cdf, positions), the i-th position lands at index (#cdf < pos_i) + i,
-   so ancestors a_i = merged_rank(pos_i) - i. Two argsorts (~2 ms each)
-   and slice ops — no random access. The state apply still needs one
-   gather; prefer the roll-metropolis op when ancestry itself isn't needed.
 """
 
 from __future__ import annotations
@@ -121,7 +110,7 @@ def roll_metropolis_sweeps_expspace_auto(key: jax.Array, X: jnp.ndarray,
                                          w: jnp.ndarray,
                                          num_steps: int = 10
                                          ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """ESS-conditioned sweep truncation (round 4, VERDICT item 6): the
+    """ESS-conditioned sweep truncation: the
     independence-MH chains' finite-sweep bias contracts per sweep at
     roughly (1 - 1/(N * max_i w_norm_i)) — near-uniform weights mix in a
     sweep or two, so spending the full budget there buys nothing. Bucket
@@ -132,10 +121,9 @@ def roll_metropolis_sweeps_expspace_auto(key: jax.Array, X: jnp.ndarray,
         0.5 < ess/N <= 0.75 -> ceil(B/2)
         ess/N > 0.75        -> ceil(B/4)
 
-    Thresholds validated on-chip (benchmarks/probe_sweeps.py): at
-    ess/N ~ 0.8 the B/4 offspring law and filter logZ match B=10 within
-    Monte-Carlo error; at ess/N ~ 0.3 truncation measurably biases logZ,
-    hence the conservative full budget below 0.5. The reference fixes
+    Thresholds: at ess/N ~ 0.8 the B/4 offspring law and filter logZ
+    match B=10 within Monte-Carlo error; at ess/N ~ 0.3 truncation
+    measurably biases logZ, hence the conservative full budget below 0.5. The reference fixes
     B = 10 unconditionally (``/root/reference/src/samplers.cpp:7-36``).
     Opt-in via ``resampler_kwargs={"num_steps": "auto"}``.
     """
@@ -174,22 +162,3 @@ def roll_metropolis_resample_op(num_steps: int = 10,
 
     return op
 
-
-def systematic_ancestors_sortfree(key: jax.Array,
-                                  log_weights: jnp.ndarray) -> jnp.ndarray:
-    """Systematic ancestors [N] via rank-by-merge (no searchsorted).
-
-    positions p_i = (i + u)/N are already sorted; cdf is sorted; in the
-    ascending merge of [cdf, positions], position i sits at
-    (#cdf <= p_i) + i, so a_i = merged_index(p_i) - i.
-    """
-    n = log_weights.shape[0]
-    dtype = log_weights.dtype
-    u = jax.random.uniform(key, (), dtype)
-    positions = (jnp.arange(n, dtype=dtype) + u) / n
-    cdf = jnp.cumsum(jax.nn.softmax(log_weights))
-    merged = jnp.concatenate([cdf, positions])
-    order = jnp.argsort(merged)                  # merged order
-    rank = jnp.argsort(order)                    # rank of each element
-    a = rank[n:] - jnp.arange(n)                 # contiguous slice, no gather
-    return jnp.clip(a, 0, n - 1).astype(jnp.int32)

@@ -21,7 +21,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.diagnostics.metrics import effective_sample_size, log_normalize

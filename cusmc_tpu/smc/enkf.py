@@ -8,9 +8,8 @@ weight-degeneracy-free, the standard tool in data assimilation. The
 reference has nothing in this family (bootstrap-only,
 ``/root/reference/src/mcmc.cpp:239-309``).
 
-TPU mapping: the entire update is ensemble-anomaly matmuls —
-[N, d]ᵀ[N, k] cross-covariances and a [k, k] solve — which land on the MXU
-at any d; no resampling, no gathers, no transcendentals. One ``lax.scan``.
+Device mapping: the entire update is ensemble-anomaly matmuls —
+[N, d]ᵀ[N, k] cross-covariances and a [k, k] solve — at any d; no resampling, no gathers, no transcendentals. One ``lax.scan``.
 
 Works with any model exposing ``propagate`` (stochastic forecast, e.g.
 ``DLM.propagate``) plus a linear observation operator (F, V); the forecast
@@ -24,7 +23,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 
@@ -99,7 +98,7 @@ def ensemble_kalman_filter(
         A = (xf - mean_f[None, :]) * inflation          # [N, d] anomalies
         xf = mean_f[None, :] + A
 
-        # Innovation statistics from the ensemble (all MXU matmuls; under
+        # Innovation statistics from the ensemble (all matmuls; under
         # shard_map the partial [d,k]/[k,k] products psum over shards).
         HX = xf @ F.T                                    # [N, k]
         mean_h = _gmean(HX, axis_name)

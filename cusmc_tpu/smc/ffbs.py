@@ -10,7 +10,7 @@ transition density:
 For the DLM the transition term is a Gaussian quadform of
 ``x_{t+1}* − G x_t^i`` — for M simultaneous paths this is an [M, N]
 residual tensor per step, built from two small matmuls and reduced on the
-vector unit: exactly the dense-batched shape TPUs are built for. Cost
+vector units: a dense-batched shape that needs no gathers. Cost
 O(T·M·N·d); with M=64, N=4096 it runs the whole backward pass in one
 ``lax.scan``.
 
@@ -36,7 +36,7 @@ def _dlm_transition_logpdf(model: DLM, x_next: jnp.ndarray,
 
     Gaussian or Student-T transition (matching the model's ``noise``).
     Quadform expansion: |Li(a - b)|^2 = |Li a|^2 - 2 (Li a)·(Li b) + |Li b|^2
-    — the cross term is ONE [M,d]x[d,N] matmul (MXU).
+    — the cross term is ONE [M,d]x[d,N] matmul.
     """
     # W_sqrt is any square root (eigh roots are NOT triangular); rebuild a
     # genuine Cholesky factor from W = W_sqrt W_sqrt^T for the solves.
@@ -47,7 +47,7 @@ def _dlm_transition_logpdf(model: DLM, x_next: jnp.ndarray,
     w_chol = jnp.linalg.cholesky(W_sqrt @ W_sqrt.T)
     za = tri_solve(w_chol, x_next.astype(wdtype))            # [M, d]
     zb = tri_solve(w_chol, (x_prev @ model.G.T).astype(wdtype))  # [N, d]
-    cross = za @ zb.T                          # [M, N] (MXU)
+    cross = za @ zb.T                          # [M, N]
     qa = jnp.sum(za * za, axis=-1)[:, None]
     qb = jnp.sum(zb * zb, axis=-1)[None, :]
     quad = qa - 2.0 * cross + qb

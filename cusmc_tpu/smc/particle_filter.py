@@ -1,6 +1,6 @@
 """Bootstrap particle filter as a single compiled ``lax.scan``.
 
-TPU-native replacement for the reference's driver stack
+Replacement for the reference's driver stack
 (``/root/reference/src/run.rcpp.cpp:58-126`` -> ``src/particle_filter.cpp:6-39``
 -> ``MCMC`` time loop ``src/mcmc.cpp:239-309``). The reference crosses the
 host<->device boundary six times per timestep (H2D/D2H around the sample and
@@ -10,10 +10,9 @@ XLA program: body = resample -> propagate -> reweight exactly mirroring
 ``mcmc.cpp:292-308``.
 
 Two layouts for the scan carry:
-- "packed" (default on the hot path): particles as [d, N], N on the 128-lane
-  axis, with the gather-free roll-Metropolis resampler — ~100x faster at
-  N=1M on TPU v5e (see ops/packed.py and resampling/rolls.py for the
-  measurements). Public inputs/outputs remain [N, d] / [T, N, d].
+- "packed" (default on the hot path): particles as [d, N], N minor, with
+  the gather-free roll-Metropolis resampler (see ops/packed.py and
+  resampling/rolls.py). Public inputs/outputs remain [N, d] / [T, N, d].
 - "batch": particles as [N, d] with index-gather resampling — the layout
   the sharded allgather path and the registry resamplers use directly.
 
@@ -34,12 +33,11 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.diagnostics.metrics import effective_sample_size, log_normalize
 from cusmc_tpu.models.dlm import DLM
-from cusmc_tpu.ops.fused_step import MAX_MXU_DIM, fused_filter_step
 from cusmc_tpu.resampling import get_resampler
 from cusmc_tpu.resampling.rolls import roll_metropolis_resample_op
 
@@ -166,9 +164,7 @@ def _fast_exp_step_factory(propagate_fn: Callable, logpdf_fn: Callable,
     weights ``w`` instead of log weights: ESS and the evidence increment
     come from fused sums over ``w``; resamplers consume ``w`` (or its
     unnormalized cumsum) directly, so the per-step softmax/exp passes of
-    the generic log-space path disappear. Always-resample single-shard
-    traces are identical to the round-3 specialized factories
-    (the 1.47 B metropolis headline path).
+    the generic log-space path disappear.
 
     ``resample_exp(key, x, w[, pred]) -> (x_anc, w_pre, a)`` with
     ``w_pre`` the post-op weights (ones when resampled, ``w`` when the
@@ -185,14 +181,7 @@ def _fast_exp_step_factory(propagate_fn: Callable, logpdf_fn: Callable,
     never-resample SIS regime over long horizons the log-space generic
     path (``layout="batch"`` or ``debug_checks=True``) is the exact
     one — measured 0.2 nats divergence after 40 SIS steps on a carry
-    whose weight spread had reached e5e5.
-
-    (Measured dead end, kept as a note: applying the winning-roll
-    selection to G@X instead of X — mathematically identical since the
-    selection commutes with per-column maps — REGRESSED d=2 1.35B ->
-    0.90B and d=16 808M -> 559M: XLA fuses the select chain into the
-    matmul operand read when the matmul consumes it, which the
-    reordering defeats.)"""
+    whose weight spread had reached e5e5."""
     from cusmc_tpu.models.base import normalize_time_hook
     propagate_fn = normalize_time_hook(propagate_fn, "x")
     logpdf_fn = normalize_time_hook(logpdf_fn, "y")
@@ -283,8 +272,7 @@ def packed_exp_resample_op(resampler_name: str, num_particles_global: int,
     scale-invariant; positions scale by the total) so the softmax pass
     disappears; residual reuses the ESS sum via CSE for its N/sum(w)
     scaling."""
-    from cusmc_tpu.ops.cumsum import blocked_cumsum
-    from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply
+    from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply, weight_cdf
     from cusmc_tpu.resampling.classic import POSITION_FNS
 
     n = num_particles_global
@@ -317,9 +305,9 @@ def packed_exp_resample_op(resampler_name: str, num_particles_global: int,
         pos_fn = POSITION_FNS[resampler_name]
 
         def op(key, X, w):
-            cdf, cdf128 = blocked_cumsum(w)
+            cdf = weight_cdf(w)
             positions = pos_fn(key, n, w.dtype) * cdf[-1]
-            x_anc, a = inverse_cdf_apply(cdf, positions, X, cdf128=cdf128)
+            x_anc, a = inverse_cdf_apply(cdf, positions, X)
             return x_anc, jnp.ones_like(w), a
 
         return op
@@ -334,121 +322,32 @@ def packed_exp_resample_op(resampler_name: str, num_particles_global: int,
     raise KeyError(f"no exp-space fast op for resampler {resampler_name!r}")
 
 
-def _fused_cdf_step_factory(model: DLM, num_particles: int, pos_mode: str,
-                            tile: Optional[int], sr: int,
-                            return_history: bool = True,
-                            interpret: bool = False):
-    """Exp-space scan body around the fused UNBIASED inverse-CDF kernel
-    (ops/fused_cdf_step.py): systematic/stratified resample + propagate
-    + reweight in ONE kernel pass. Same carry/ESS/evidence algebra as
-    ``_fast_exp_step_factory``; the per-step O(N) work outside the
-    kernel is just the blocked cumsum and the weight reductions."""
-    from cusmc_tpu.ops.cumsum import blocked_cumsum
-    from cusmc_tpu.ops.fused_cdf_step import fused_cdf_filter_step
-
-    log_n = math.log(num_particles)
-    k_dim = model.obs_dim
-    half_logdet = jnp.sum(jnp.log(jnp.diagonal(model.V_chol)))
-    if model.noise == "mvt":
-        from jax.scipy.special import gammaln
-
-        df = model.df
-        log_norm = (gammaln(0.5 * (df + k_dim)) - gammaln(0.5 * df)
-                    - 0.5 * k_dim * (jnp.log(df) + math.log(math.pi))
-                    - half_logdet)
-    else:
-        df = None
-        log_norm = -0.5 * k_dim * math.log(2.0 * math.pi) - half_logdet
-
-    def step(carry, inp):
-        x, w, key = carry
-        t, y_t = inp
-        key_t = jax.random.fold_in(key, t)
-
-        s1 = jnp.sum(w)
-        s2 = jnp.sum(w * w)
-        ess = s1 * s1 / s2
-
-        cdf, cdf128 = blocked_cumsum(w, interpret=interpret)
-        x_new, ll, a = fused_cdf_filter_step(
-            key_t, cdf, cdf128, x, y_t, model.G, model.W_sqrt, model.F,
-            model.V_chol_inv, df, log_norm, noise=model.noise,
-            mode=pos_mode, tile=tile, sr=sr, interpret=interpret,
-            df_int=model.df_int)
-        m = jnp.max(ll)
-        w_new = jnp.exp(ll - m)
-        lz_inc = m + jnp.log(jnp.sum(w_new)) - log_n
-
-        carry = (x_new, w_new, key)
-        history = (x_new, ll, a) if return_history else ()
-        return carry, (history, ess, lz_inc)
-
-    return step
-
-
-def _fused_cdf_eligible(model, n: int) -> bool:
-    """Static eligibility for the fused inverse-CDF kernel engine:
-    float32 DLM within the MXU dim cap, standard (one-chi-square) MVT
-    with concrete df >= 2 (the in-kernel Marsaglia-Tsang fallback has
-    no alpha<1 boost), and N big enough for the window walk."""
-    from cusmc_tpu.ops.fused_cdf_step import DEFAULT_SROWS, cdf_auto_tile
-
-    if not (isinstance(model, DLM)
-            and max(model.state_dim, model.obs_dim) <= MAX_MXU_DIM
-            and not model.per_dim_chi
-            and model.G.dtype == jnp.float32):
-        return False
-    tile = cdf_auto_tile(n, max(model.state_dim, model.obs_dim))
-    if n % tile != 0 or n < 2 * DEFAULT_SROWS * 128 or n % 128 != 0:
-        return False
-    if n > 1 << 24:  # kernel guard: f32-exact group positions need n <= 2^24
-        return False
-    if model.noise == "mvt":
-        if isinstance(model.df, jax.core.Tracer):
-            return False
-        try:
-            if float(model.df) < 2.0:
-                return False
-        except Exception:
-            return False
-    return True
-
-
 def _residual_resample_packed(key, X, nw):
     """Residual resampling of packed X [d, n] from PRE-SCALED weights
-    ``nw`` [n] (= n * w / sum(w)): two fused inverse-CDF kernel passes
+    ``nw`` [n] (= n * w / sum(w)): two inverse-CDF passes
     (deterministic-floor integer grid + residual order statistics) and a
-    dynamic roll — replaces the registry path's merge-ranks + random
-    gather (6.2 M particle-steps/s in round 2, benchmarks/RESULTS.md).
-    Law identical to ``resampling.classic.residual_ancestors``. Returns
+    dynamic roll. Law identical to
+    ``resampling.classic.residual_ancestors``. Returns
     ``(x_anc [d, n], ancestors [n])``."""
-    from cusmc_tpu.ops.cumsum import blocked_cumsum
-    from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply
+    from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply, weight_cdf
     from cusmc_tpu.resampling.classic import _residual_positions
 
     n = nw.shape[0]
     wdt = nw.dtype
     counts = jnp.floor(nw)
-    ccum, c128 = blocked_cumsum(counts)
+    ccum = weight_cdf(counts)
     n_det = jnp.minimum(ccum[-1], n).astype(jnp.int32)
-    rcdf, r128 = blocked_cumsum(jnp.maximum(nw - counts, 0.0))
+    rcdf = weight_cdf(jnp.maximum(nw - counts, 0.0))
     slots = jnp.arange(n, dtype=wdt)
-    # Positions are clamped INSIDE the cdf range: slots past the
-    # det/residual boundary would rank to N, and the straddling
-    # output block would walk windows to the array end (the
-    # merge-path kernel absorbs any span, but ~N/2048 wasted
-    # window loads per step are avoidable). Clamped tail slots
-    # land on the last active entry; their outputs are masked
-    # off below.
+    # Positions are clamped inside the cdf range; clamped tail slots
+    # land on the last active entry and are masked off below.
     p_det = jnp.minimum(slots + 0.5, n_det.astype(wdt) - 0.5)
-    x_det, a_det = inverse_cdf_apply(ccum, p_det, X, cdf128=c128)
+    x_det, a_det = inverse_cdf_apply(ccum, p_det, X)
     v = jnp.minimum(_residual_positions(key, n, n_det, wdt),
                     1.0 - 1e-6) * rcdf[-1]
-    x_res, a_res = inverse_cdf_apply(rcdf, v, X, cdf128=r128)
-    # Align draw k to slot n_det + k: roll right by n_det. A
-    # traced-shift jnp.roll lowers to a random gather (~8 ms per
-    # [N] array at N=1M on v5e); double-and-slice is two
-    # contiguous DMAs.
+    x_res, a_res = inverse_cdf_apply(rcdf, v, X)
+    # Align draw k to slot n_det + k: roll right by n_det
+    # (double-and-slice: contiguous copies, no gather).
 
     def droll(arr, s):
         two = jnp.concatenate([arr, arr], axis=-1)
@@ -479,18 +378,17 @@ def packed_resample_op(resampler_name: str, num_particles_global: int,
     """Packed-layout [d, N] resample op for a registry key.
 
     "metropolis" -> gather-free roll-Metropolis sweeps;
-    CDF family (systematic/stratified/multinomial) -> the fused
-    window-walk Pallas kernel ``ops/monotone_gather.inverse_cdf_apply``
-    (in-kernel binary search + dynamic_gather apply): no argsort, no
-    global searchsorted, no random lane gather — the three ops that
-    capped the CDF resamplers at ~95 M particle-steps/s in round 1
-    (benchmarks/RESULTS.md);
-    "residual" -> ``_residual_resample_packed`` (two fused inverse-CDF
-    kernel passes over the floor/remainder decomposition);
-    others (custom) -> registry ancestor fn + ``take_columns`` (monotone
-    fast path with a jnp.take fallback for unsorted ancestry).
+    CDF family (systematic/stratified/multinomial) -> cumsum + sorted
+    search + column take (``ops/monotone_gather.inverse_cdf_apply``);
+    "residual" -> ``_residual_resample_packed`` (two inverse-CDF passes
+    over the floor/remainder decomposition);
+    others (custom) -> registry ancestor fn + ``take_columns``.
     """
-    from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply, take_columns
+    from cusmc_tpu.ops.monotone_gather import (
+        inverse_cdf_apply,
+        take_columns,
+        weight_cdf,
+    )
     from cusmc_tpu.resampling.classic import POSITION_FNS
 
     log_n = math.log(num_particles_global)
@@ -505,11 +403,9 @@ def packed_resample_op(resampler_name: str, num_particles_global: int,
         def op(key, X, logw):
             n = logw.shape[0]
             wdt = jnp.promote_types(logw.dtype, jnp.float32)
-            from cusmc_tpu.ops.cumsum import blocked_cumsum
-
-            cdf, cdf128 = blocked_cumsum(jax.nn.softmax(logw.astype(wdt)))
+            cdf = weight_cdf(jax.nn.softmax(logw.astype(wdt)))
             positions = pos_fn(key, n, wdt)
-            x_anc, a = inverse_cdf_apply(cdf, positions, X, cdf128=cdf128)
+            x_anc, a = inverse_cdf_apply(cdf, positions, X)
             return x_anc, jnp.full(logw.shape, -log_n, logw.dtype), a
 
         return op
@@ -535,72 +431,6 @@ def packed_resample_op(resampler_name: str, num_particles_global: int,
     return op
 
 
-def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
-                         num_sweeps: int, return_history: bool,
-                         interpret: bool, num_window_tiles: int = 2):
-    """Scan body around the fully fused Pallas step (ops/fused_step.py):
-    resample+propagate+reweight in one kernel, plus the O(N) weight
-    normalization / ESS reductions outside it."""
-    k_dim = model.obs_dim
-    half_logdet = jnp.sum(jnp.log(jnp.diagonal(model.V_chol)))
-    if model.noise == "mvt":
-        from jax.scipy.special import gammaln
-
-        df = model.df
-        log_norm = (gammaln(0.5 * (df + k_dim)) - gammaln(0.5 * df)
-                    - 0.5 * k_dim * (jnp.log(df) + math.log(math.pi))
-                    - half_logdet)
-    else:
-        df = None
-        log_norm = -0.5 * k_dim * math.log(2.0 * math.pi) - half_logdet
-
-    def step(carry, inp):
-        x, logw, key = carry
-        t, y_t = inp
-        key_t = jax.random.fold_in(key, t)
-        ess = effective_sample_size(logw)
-        x_new, ll, a = fused_filter_step(
-            key_t, x, logw, y_t, model.G, model.W_sqrt, model.F,
-            model.V_chol_inv, df, log_norm, noise=model.noise,
-            num_sweeps=num_sweeps, tile=tile, interpret=interpret,
-            df_int=model.df_int, num_window_tiles=num_window_tiles)
-        # Always-resample semantics: pre-weights uniform 1/N.
-        logw_new, lse = log_normalize(ll)
-        lz_inc = lse - math.log(num_particles)
-        carry = (x_new, logw_new, key)
-        history = (x_new, ll, a) if return_history else ()
-        return carry, (history, ess, lz_inc)
-
-    return step
-
-
-def _pallas_eligible(model, n: int, tile: int) -> bool:
-    if not (isinstance(model, DLM)
-            and max(model.state_dim, model.obs_dim) <= MAX_MXU_DIM
-            and n % tile == 0 and n >= 2 * tile and tile % 128 == 0
-            and not model.per_dim_chi
-            # The kernel's state window/output follow the model's state
-            # dtype: f32, or bf16 under mixed precision (the weight path
-            # stays f32 either way; bf16's window rotation runs on the
-            # int32 sublane-pair view, so it needs even d).
-            and (model.G.dtype == jnp.float32
-                 or (model.G.dtype == jnp.bfloat16
-                     and model.state_dim % 2 == 0))):
-        return False
-    if model.noise == "mvt":
-        # The in-kernel Marsaglia-Tsang sampler has no alpha<1 boost:
-        # require df >= 2 (alpha = df/2 >= 1). Traced df can't be checked
-        # here -> not eligible.
-        if isinstance(model.df, jax.core.Tracer):
-            return False
-        try:
-            if float(model.df) < 2.0:
-                return False
-        except Exception:
-            return False
-    return True
-
-
 def bootstrap_filter(
     key: jax.Array,
     model: DLM,
@@ -611,9 +441,6 @@ def bootstrap_filter(
     ess_threshold: Optional[float] = None,
     return_history: bool = True,
     layout: str = "auto",
-    engine: str = "auto",
-    pallas_tile: Optional[int] = None,
-    pallas_interpret: bool = False,
     axis_name: Optional[str] = None,
     num_particles_global: Optional[int] = None,
     resample_op: Optional[Callable] = None,
@@ -659,75 +486,6 @@ def bootstrap_filter(
                          "layout='batch'")
     packed = layout == "packed"
 
-    # Engine choice (measured on v5e, f32, N=1M, T=200, B=10 —
-    # benchmarks/RESULTS.md): the XLA packed path wins at small d (d=2
-    # 1.44B vs 880M; d=16 857M vs 643M) where its fused select-chain
-    # traffic is cheap; the fused Pallas kernel (ops/fused_step.py) wins
-    # at d >= 32 f32 (d=32 396M vs 317M, d=64 230M vs 168M, d=128 115M
-    # vs 87M) and d >= 64 bf16, where reading X once per step beats
-    # XLA's (B+1)-way select over [d, N]. The kernel stays OPT-IN (see
-    # the engine="auto" note below).
-    user_tile = pallas_tile  # None -> per-kernel auto (the two Pallas
-    # engines have different VMEM/live-set shapes, hence different autos)
-    if pallas_tile is None:
-        from cusmc_tpu.ops.fused_step import auto_tile
-
-        dk = (max(model.state_dim, model.obs_dim)
-              if isinstance(model, DLM) else 1)
-        itemsize = (jnp.dtype(model.G.dtype).itemsize
-                    if isinstance(model, DLM) else 4)
-        pallas_tile = auto_tile(num_particles, dk, itemsize)
-    # The fused-CDF kernel engine (ops/fused_cdf_step.py) is UNBIASED
-    # (exact inverse-CDF positions), so unlike the windowed-Metropolis
-    # kernel it WOULD be eligible for auto-selection wherever it
-    # measured faster than the XLA path — but the round-4 d-sweep found
-    # no such d (0.80-0.92x of the composed cumsum-kernel -> search-
-    # kernel -> XLA-epilogue pipeline at every d in 2..128; full
-    # per-stage analysis in benchmarks/RESULTS.md "fused UNBIASED
-    # inverse-CDF engine"). auto therefore never selects it;
-    # engine="pallas" is the explicit, on-chip-validated opt-in.
-    fused_cdf_ok = (packed and resampler in ("systematic", "stratified")
-                    and ess_threshold is None and axis_name is None
-                    and resample_op is None and not debug_checks
-                    and (pallas_interpret
-                         or jax.default_backend() == "tpu")
-                    and _fused_cdf_eligible(model, num_particles))
-    use_fused_cdf = False
-    if engine == "pallas" and resampler in ("systematic", "stratified"):
-        if not fused_cdf_ok:
-            raise ValueError(
-                "engine='pallas' with a CDF resampler needs packed "
-                "layout, no ESS threshold, a single shard, and a "
-                f"float32 DLM with d,k <= {MAX_MXU_DIM} (standard MVT "
-                f"df >= 2), N compatible with the window walk")
-        use_fused_cdf = True
-    if engine == "auto":
-        # For metropolis, the windowed-Megopolis kernel is FASTER than
-        # the XLA path at d>=32 f32 / d>=64 bf16 (RESULTS.md d-sweep),
-        # but its windowed proposal mixes over a 2-tile window per step
-        # instead of globally: at equal B its finite-sweep resampling
-        # bias is STRICTLY WORSE than the XLA roll scheme's, and the
-        # gap widens exactly in the sharp-weight regimes that high-d
-        # configs produce (measured d=32 N=262k B=10: logZ -3455
-        # windowed vs -2616 roll vs -2097 roll B=30). Silently trading
-        # statistical quality for speed is the wrong default, so "auto"
-        # always takes the XLA path for metropolis; engine="pallas" is
-        # the documented opt-in for throughput-bound workloads.
-        engine = "xla"
-    if engine == "pallas" and not use_fused_cdf:
-        if not (packed and resampler == "metropolis"
-                and ess_threshold is None and axis_name is None):
-            raise ValueError("engine='pallas' requires packed layout, "
-                             "a metropolis/systematic/stratified "
-                             "resampler, no ESS threshold, and a single "
-                             "shard")
-        if not _pallas_eligible(model, num_particles, pallas_tile):
-            raise ValueError(
-                f"pallas engine needs a DLM with d,k <= {MAX_MXU_DIM}, "
-                f"N a multiple of tile={pallas_tile} (and >= 2 tiles), tile "
-                f"a multiple of 128, standard MVT with concrete df >= 2, "
-                f"and a float32 or bfloat16 state")
-
     # Exp-space fast paths (packed): carry max-normalized exp weights
     # through the scan (see _fast_exp_step_factory). Round 4 lifted the
     # round-3 single-shard/always-resample restrictions: ESS-adaptive
@@ -738,21 +496,20 @@ def bootstrap_filter(
 
     exp_op = None
     if resample_op is not None and resample_op_weights == "exp":
-        if not packed or engine != "xla" or debug_checks:
+        if not packed or debug_checks:
             raise ValueError(
-                "resample_op_weights='exp' needs packed layout, "
-                "engine in ('auto', 'xla'), and debug_checks=False")
+                "resample_op_weights='exp' needs packed layout and "
+                "debug_checks=False")
         exp_op = resample_op
-    elif (engine == "xla" and packed and not debug_checks
-          and not use_fused_cdf and resample_op is None
+    elif (packed and not debug_checks and resample_op is None
           and axis_name is None
           and (resampler in ("metropolis", "residual")
                or resampler in POSITION_FNS)):
         exp_op = packed_exp_resample_op(resampler, n_global,
                                         **resampler_kwargs)
-    fast_exp = use_fused_cdf or exp_op is not None
+    fast_exp = exp_op is not None
 
-    if (engine != "pallas" and not fast_exp and resample_op is None):
+    if not fast_exp and resample_op is None:
         if packed:
             resample_op = packed_resample_op(resampler, n_global,
                                              **resampler_kwargs)
@@ -778,20 +535,7 @@ def bootstrap_filter(
 
     num_steps = ys.shape[0]
     ts = jnp.arange(1, num_steps)
-    if use_fused_cdf:
-        from cusmc_tpu.ops.fused_cdf_step import DEFAULT_SROWS
-
-        step = _fused_cdf_step_factory(
-            model, num_particles, resampler, user_tile,
-            resampler_kwargs.get("sr", DEFAULT_SROWS), return_history,
-            pallas_interpret)
-    elif engine == "pallas":
-        num_sweeps = resampler_kwargs.get("num_steps", 10)
-        step = _pallas_step_factory(
-            model, num_particles, pallas_tile, num_sweeps, return_history,
-            pallas_interpret,
-            resampler_kwargs.get("num_window_tiles", 2))
-    elif exp_op is not None:
+    if fast_exp:
         step = _fast_exp_step_factory(
             propagate_fn, logpdf_fn, n_global, exp_op, ess_threshold,
             axis_name, return_history)

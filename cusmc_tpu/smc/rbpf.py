@@ -8,10 +8,10 @@ for z alongside its sampled nonlinear state u, and the importance weight is
 the closed-form predictive likelihood N(y; F m_pred + c, F P_pred Fᵀ + V).
 This is the RBPF of Doucet et al. 2000 / Schön et al. 2005.
 
-TPU mapping: the per-particle Kalman bank is a batch of small dense
+Device mapping: the per-particle Kalman bank is a batch of small dense
 matmuls/Cholesky factorizations, expressed as vmapped einsums over the
-particle axis — exactly the batched-small-matmul shape XLA tiles onto the
-MXU. When the system matrices do not depend on u (``mats_constant=True``)
+particle axis — the batched-small-matmul shape XLA compiles as one
+program. When the system matrices do not depend on u (``mats_constant=True``)
 the covariance recursion collapses to ONE shared Kalman covariance and the
 per-particle work is two matvecs — the classic common-covariance RBPF
 optimization.
@@ -26,7 +26,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.diagnostics.metrics import effective_sample_size, log_normalize

@@ -19,7 +19,7 @@ Zhat_j(t) = p_hat(y_{1:t} | theta_j). Per observation:
      one fixed-shape program serves every t), and accept on the exact
      PMMH ratio Zhat' * prior' / (Zhat * prior). Weights reset uniform.
 
-TPU mapping: the theta axis is a pure vmap batch (inner filters are
+Device mapping: the theta axis is a pure vmap batch (inner filters are
 independent); the rejuvenation re-run is the same compiled scan with a
 validity mask, so the entire run — including every conditional re-run —
 is ONE ``lax.scan`` under ``jit`` with no host round-trips. The
@@ -34,7 +34,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from cusmc_tpu.utils import struct
 from jax import lax
 
 from cusmc_tpu.diagnostics.metrics import effective_sample_size, log_normalize

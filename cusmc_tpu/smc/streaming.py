@@ -2,8 +2,8 @@
 history streams to a host-side arena between chunks.
 
 The reference holds the entire T x N x d history in RAM
-(``/root/reference/src/run.rcpp.cpp:80-97``) — at TPU scale (N=1M, T=1000)
-that is 8 GB/dim and cannot live in HBM. Here the scan carry stays on
+(``/root/reference/src/run.rcpp.cpp:80-97``) — at scale (N=1M, T=1000)
+that is 8 GB/dim of device memory. Here the scan carry stays on
 device across chunks (no re-initialization), only the [K, N, d] history
 block crosses to the host per chunk, into ``TrajectoryStore``'s
 preallocated arena (native memcpy, no per-step Python).
@@ -28,8 +28,7 @@ from cusmc_tpu.io.native_store import TrajectoryStore
 
 
 def _host_fetch(x) -> np.ndarray:
-    """Device array -> host numpy, multi-process-safe (round 5, VERDICT
-    weak #5): under a single-process mesh this is a plain transfer; under
+    """Device array -> host numpy, multi-process-safe: under a single-process mesh this is a plain transfer; under
     a multi-process mesh global arrays are not host-addressable, so the
     addressable shards are gathered across processes first. Keep this on
     the COLD path only (checkpoints, history drains, final result) — the
@@ -90,11 +89,6 @@ def _sharded_chunk_runner(model, num_particles, mesh, axis, resampler,
         roll_metropolis_sharded_op,
     )
 
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-
     n_shards = mesh.shape[axis]
     if num_particles % n_shards != 0:
         raise ValueError(f"num_particles={num_particles} not divisible "
@@ -116,7 +110,7 @@ def _sharded_chunk_runner(model, num_particles, mesh, axis, resampler,
         return x2, w2, xs, lls, ancs, esss, lzs
 
     sh_x = P(None, axis)
-    run = jax.jit(shard_map(
+    run = jax.jit(jax.shard_map(
         chunk_local, mesh=mesh,
         in_specs=(sh_x, P(axis), P(), P(), P()),
         out_specs=(sh_x, P(axis), P(None, None, axis), P(None, axis),
@@ -135,7 +129,7 @@ def _sharded_chunk_runner(model, num_particles, mesh, axis, resampler,
                       jnp.promote_types(x0.dtype, jnp.float32))
         return x0, w0
 
-    init = jax.jit(shard_map(init_local, mesh=mesh, in_specs=(P(),),
+    init = jax.jit(jax.shard_map(init_local, mesh=mesh, in_specs=(P(),),
                              out_specs=(sh_x, P(axis)), check_vma=False))
     wdtype = jnp.promote_types(model.G.dtype, jnp.float32)
     return run_chunk, init, wdtype
@@ -342,8 +336,7 @@ def streaming_bootstrap_filter(
         carry, ((xs, _lls, _ancs), esss, lzs) = run_chunk(carry, ts, ys_chunk)
         if halt_on_nonfinite:
             # One on-device-reduced scalar crosses to host per chunk —
-            # never the [N] weight vector (round 5, VERDICT weak #5;
-            # also the only form that works under a multi-process mesh,
+            # never the [N] weight vector (also the only form that works under a multi-process mesh,
             # where the global carry is not host-addressable).
             if bool(halt_pred(carry[1], lzs)):
                 from cusmc_tpu.utils.debug import FilterDivergedError

@@ -4,8 +4,8 @@ The reference factorizes covariances with an eigendecomposition square root
 ``Q = U @ sqrt(diag(lambda))`` (``/root/reference/src/linear_algebra.cpp:10-23``,
 used for C0 at ``src/mcmc.cpp:69-71`` and W at ``src/mcmc.cpp:278-280``).
 
-On TPU we default to a Cholesky factor (one triangular matmul, MXU friendly,
-and the natural input to triangular-solve based log-densities), but keep the
+We default to a Cholesky factor (one triangular matmul, and the natural
+input to triangular-solve based log-densities), but keep the
 eigh square root available for covariance matrices that are only positive
 *semi*-definite, where Cholesky fails.
 """
@@ -52,7 +52,7 @@ def tri_solve(chol: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve L z = b for z with L lower triangular [d, d]; b is [..., d].
 
     The batch collapses into a single multi-RHS triangular solve
-    (one [d, d] x [d, B] op — MXU-friendly, no per-row dispatch).
+    (one [d, d] x [d, B] op, no per-row dispatch).
     """
     batch = b.shape[:-1]
     d = b.shape[-1]
@@ -66,9 +66,8 @@ def tri_inverse(chol: jnp.ndarray) -> jnp.ndarray:
 
     For densities evaluated MANY times against one fixed covariance
     (MCMC scan bodies), precomputing ``Linv`` turns every per-step
-    triangular solve into a single MXU matmul ``(x - mean) @ Linv.T`` —
-    measured 1.38x on the d=128 multi-chain MH step
-    (benchmarks/probe_mh.py). One solve at trace time; numerically
+    triangular solve into a single matmul ``(x - mean) @ Linv.T``.
+    One solve at trace time; numerically
     equivalent to ``tri_solve`` at f32 for well-conditioned factors.
     """
     d = chol.shape[-1]

@@ -40,8 +40,7 @@ print(f"sharded streaming over {n_dev} device(s): logZ "
       f"min ESS {float(np.min(np.asarray(res.ess))):.0f}")
 
 # --- 2. ESS-conditioned Metropolis sweeps: full B=10 budget only on
-# sharp-weight steps — measured +8% on TPU at logZ statistically
-# identical to fixed B=10 (benchmarks/RESULTS.md).
+# sharp-weight steps (see resampling/rolls.py for the thresholds).
 out = bootstrap_filter(key, model, jnp.asarray(ys, jnp.float32), 8192,
                        resampler="metropolis",
                        resampler_kwargs={"num_steps": "auto"},

@@ -2,7 +2,7 @@
 diagonal-mass preconditioning, parallel tempering for a multimodal
 target, and convergence diagnostics (split R-hat / multi-chain ESS).
 
-Run: python examples/07_advanced_mcmc.py   (CPU or TPU)
+Run: python examples/07_advanced_mcmc.py   (CPU or GPU)
 """
 
 import os as _os, sys as _sys
@@ -21,10 +21,10 @@ from cusmc_tpu.mcmc import chees_hmc_sampler, parallel_tempering_sampler
 d, chains, steps = 16, 128, 2000
 stds = jnp.linspace(1.0, 10.0, d)
 cov = jnp.diag(stds ** 2).astype(jnp.float32)
-# precomputed-inverse closure: each density eval is one MXU matmul
+# precomputed-inverse closure: each density eval is one matmul
 log_prob = make_mvt_logprob(jnp.zeros(d, jnp.float32), cov, df=8.0)
 
-key = jax.random.key(0, impl="rbg")     # hardware PRNG: ~2x cheaper
+key = jax.random.key(0, impl="rbg")     # XLA RngBitGenerator keys
 init = stds * jax.random.normal(jax.random.key(1), (chains, d),
                                 jnp.float32)
 res = jax.jit(lambda k: chees_hmc_sampler(

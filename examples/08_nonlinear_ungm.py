@@ -2,7 +2,7 @@
 posteriors, time-varying drift — the regime where the Kalman filter is
 inapplicable and bootstrap particle filtering is the textbook answer).
 
-Run: python examples/08_nonlinear_ungm.py   (CPU or TPU)
+Run: python examples/08_nonlinear_ungm.py   (CPU or GPU)
 """
 
 import os as _os, sys as _sys

@@ -1,7 +1,7 @@
 // Asynchronous sequential file writer — out-of-core history spilling.
 //
 // The reference's IO is a synchronous CSV dump at exit (io.cpp:7-43,
-// /root/reference/src/io.cpp); at TPU scale the particle history
+// /root/reference/src/io.cpp); at N=1M scale the particle history
 // (T x N x d, e.g. 8 GB at N=1M, T=1000, d=2) can exceed host RAM and a
 // blocking write() per chunk would stall the device between scan chunks.
 // This writer copies each submitted chunk into an owned buffer from a

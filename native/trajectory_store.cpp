@@ -2,7 +2,7 @@
 //
 // Native equivalent of the reference driver's history buffers: run.rcpp.cpp
 // (/root/reference/src/run.rcpp.cpp:80-97) materializes the FULL
-// timeSteps x N x d posterior in per-step Eigen heap vectors. On TPU the
+// timeSteps x N x d posterior in per-step Eigen heap vectors. On the device the
 // filter streams history out of HBM in chunks of K steps; this store
 // appends those chunks into one preallocated, page-aligned host arena
 // (no per-step allocation, no Python-loop copies) and hands back a

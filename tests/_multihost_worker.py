@@ -10,8 +10,7 @@ full ``sharded_bootstrap_filter`` (systematic: span-bounded ring exchange
 with dynamic-source ppermutes + all_gather; metropolis: per-sweep
 dynamic-source ppermute switch) over the process-spanning mesh and
 asserts logZ matches the single-process run bitwise-or-within-tolerance
-(round 5, VERDICT missing #2: previously only a bare psum ever crossed
-DCN)."""
+across a real process boundary."""
 
 import os
 import sys

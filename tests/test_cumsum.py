@@ -1,41 +1,39 @@
-"""Tests for the single-pass blocked prefix-sum kernel (ops/cumsum).
-
-No PRNG in the kernel, so interpret mode is a full correctness test of
-the blocked Hillis-Steele prefix + sequential carry logic.
-"""
+"""Tests for the weight cdf the inverse-CDF search runs on
+(ops/monotone_gather.weight_cdf): a plain cumsum, made exactly monotone."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cusmc_tpu.ops.cumsum import BROWS_CANDIDATES, FOLD, blocked_cumsum
+from cusmc_tpu.ops.monotone_gather import weight_cdf
 
 
-# One size per block-row candidate (each exercises a different
-# in-block prefix depth), plus a multi-block case at the smallest.
-@pytest.mark.parametrize("n", sorted(
-    {FOLD * r for r in BROWS_CANDIDATES}
-    | {3 * FOLD * max(BROWS_CANDIDATES)}))
-def test_blocked_cumsum_matches_jnp(key, n):
+@pytest.mark.parametrize("n", [128, 4096, 8192, 98304])
+def test_weight_cdf_matches_cumsum(key, n):
     w = jax.random.uniform(key, (n,), jnp.float32)
-    cdf, cdf128 = blocked_cumsum(w, interpret=True)
-    ref = jnp.cumsum(w)
-    np.testing.assert_allclose(np.asarray(cdf), np.asarray(ref),
-                               rtol=2e-6, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(cdf128),
-                                  np.asarray(cdf)[FOLD - 1::FOLD])
-    # monotone by construction (weights are non-negative)
-    assert bool(jnp.all(jnp.diff(cdf) >= 0))
+    cdf = weight_cdf(w)
+    ref = np.cumsum(np.asarray(w, np.float64))
+    np.testing.assert_allclose(np.asarray(cdf), ref, rtol=2e-6, atol=1e-5)
+    assert cdf.dtype == jnp.float32 and cdf.shape == (n,)
 
 
-def test_blocked_cumsum_fallback_shapes():
-    # Ineligible length -> jnp.cumsum fallback; strided slice only when
-    # divisible by FOLD.
-    w = jnp.ones((FOLD * 3,), jnp.float32)  # 3 rows: no candidate divides
-    cdf, cdf128 = blocked_cumsum(w)
-    np.testing.assert_allclose(np.asarray(cdf), np.arange(1, FOLD * 3 + 1),
-                               rtol=1e-6)
-    assert cdf128.shape == (3,)
-    cdf, cdf128 = blocked_cumsum(jnp.ones((7,), jnp.float32))
-    assert cdf128 is None
+@pytest.mark.parametrize("n", [2048, 98304])
+def test_weight_cdf_monotone_across_zero_runs(key, n):
+    # Sparse live weights between runs of exact zeros: the case where a
+    # plain cumsum's per-prefix summation order lets neighbours dip.
+    live = jnp.arange(n) % 97 == 0
+    w = jnp.where(live, jax.random.uniform(key, (n,), jnp.float32), 0.0)
+    cdf = np.asarray(weight_cdf(w))
+    assert (np.diff(cdf) >= 0).all()
+    np.testing.assert_allclose(cdf[-1], float(np.sum(np.asarray(w,
+                                                                np.float64))),
+                               rtol=1e-5)
+
+
+def test_weight_cdf_short_and_odd_lengths():
+    np.testing.assert_allclose(np.asarray(weight_cdf(jnp.ones((7,),
+                                                              jnp.float32))),
+                               np.arange(1, 8), rtol=1e-6)
+    cdf = weight_cdf(jnp.ones((3 * 128,), jnp.float32))
+    np.testing.assert_allclose(np.asarray(cdf), np.arange(1, 385), rtol=1e-6)

@@ -82,7 +82,7 @@ def test_reproducible(key):
 
 class TestFastLogprobFactories:
     """Round 5: precomputed-inverse log-density closures (the MCMC hot
-    path replaces a per-step triangular solve with one MXU matmul)."""
+    path replaces a per-step triangular solve with one matmul)."""
 
     def test_mvn_factory_matches_direct(self, key):
         from cusmc_tpu.distributions import make_mvn_logprob

@@ -42,7 +42,7 @@ def test_two_process_loopback():
     process-spanning mesh with logZ checked against the single-process
     8-device run computed here, and (c) the span-bounded ring exchange
     with concentrated far-block weights, forcing real while-loop
-    ppermute iterations across DCN (round 5, VERDICT missing #2).
+    ppermute iterations across the process boundary.
     Skips loudly if the sandbox forbids local sockets."""
     import os
     import socket

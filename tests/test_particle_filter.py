@@ -143,9 +143,8 @@ def test_fast_metropolis_path_matches_generic(key):
 def test_mixed_precision_state_dtype(demo, key):
     # state_dtype=bfloat16 mixed precision: the particle state and its
     # matmuls run in bf16 while the weight path (log-densities, evidence,
-    # resampling) stays float32. Validated on-chip at d=16/N=262k: logZ
-    # within ~1.5 nats of f32 over 200 steps (benchmarks/RESULTS.md); here
-    # the CPU regression checks dtypes, tracking, and evidence accuracy.
+    # resampling) stays float32. This CPU regression checks dtypes,
+    # tracking, and evidence accuracy.
     params, ys = demo
     ys = jnp.asarray(ys, jnp.float32)
     model = DLM.create(noise="mvn", dtype=jnp.float32,

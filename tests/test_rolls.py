@@ -1,5 +1,6 @@
-"""Tests for the gather-free packed-layout resamplers (resampling/rolls.py):
-roll-Metropolis statistical correctness and sort-free systematic exactness."""
+"""Tests for the gather-free packed-layout resampler (resampling/rolls.py):
+roll-Metropolis statistical correctness; systematic exactness against a
+numpy searchsorted reference."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +11,6 @@ from cusmc_tpu.resampling.classic import systematic_ancestors
 from cusmc_tpu.resampling.rolls import (
     roll_metropolis_resample_op,
     roll_metropolis_sweeps,
-    systematic_ancestors_sortfree,
 )
 
 
@@ -66,14 +66,18 @@ class TestSortfreeSystematic:
     @pytest.mark.parametrize("n", [16, 128, 1000])
     def test_matches_searchsorted_impl(self, n, key):
         logw = jax.random.normal(key, (n,), jnp.float32) * 2.0
-        a_ref = systematic_ancestors(key, logw)
-        a_new = systematic_ancestors_sortfree(key, logw)
-        np.testing.assert_array_equal(np.asarray(a_ref), np.asarray(a_new))
+        u = jax.random.uniform(key, (), jnp.float32)
+        positions = (jnp.arange(n, dtype=jnp.float32) + u) / n
+        cdf = np.asarray(jnp.cumsum(jax.nn.softmax(logw)))
+        a_ref = np.minimum(np.searchsorted(cdf, np.asarray(positions),
+                                           side="right"), n - 1)
+        a_new = systematic_ancestors(key, logw)
+        np.testing.assert_array_equal(a_ref, np.asarray(a_new))
 
     def test_degenerate(self, key):
         n = 64
         logw = jnp.full((n,), -1e30, jnp.float32).at[5].set(0.0)
-        a = systematic_ancestors_sortfree(key, logw)
+        a = systematic_ancestors(key, logw)
         assert (np.asarray(a) == 5).all()
 
 
